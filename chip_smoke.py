@@ -10,25 +10,43 @@ It uses only ``sentiric_stt_whisper_service_tpu_torch`` (never JAX or the
 JAX package) and fails with a non-zero exit on the first phase that fails:
 
 1. the card: ``nvidia-smi`` name and power limit; no CUDA device is a failure;
-2. the build: every kernel of ``csrc/`` compiled from this checkout;
-3. kernel checks at the slice's shapes (4 windows of large-v3): each kernel
-   (K1 log-mel, K2 flash attention, K3 decode attention in its bf16, causal
-   and int8 forms, K4 int4 decode attention) against its plain PyTorch
-   version on the same inputs, with the stated tolerance, and each one's
-   median time beside the plain version's (CUDA events, after warm-up);
-4. the slice: large-v3 at full width with random weights from a fixed seed,
-   int8 weights + fused qkv, four synthetic 16 kHz WAV requests written and
-   parsed by the port, then pad_or_trim → compute_log_mel →
+2. the build: every kernel of ``csrc/`` compiled from this checkout, one
+   ``nvcc`` per source, all started together;
+3. kernel checks at the slices' shapes (4 windows of large-v3, 5 beams):
+   each kernel (K1 log-mel, K2 flash attention, K3 decode attention in its
+   bf16, causal and int8 forms, K4 int4 decode attention, K5 beam
+   self-attention in its bf16 and int8 forms at two read bounds, K6 beam
+   cross-attention in its bf16, int8 and int4 forms) against its plain
+   PyTorch version on the same inputs, with the stated tolerance; each one's
+   median time beside the plain version's, the time of one PyTorch call that
+   computes the same function where there is one, and the bound: the least
+   time the card could take, the larger of the bytes over 3.35 TB/s and the
+   operations over the peak rate for the inputs' type;
+4. the greedy slice: large-v3 at full width with random weights from a fixed
+   seed, int8 weights + fused qkv, four synthetic 16 kHz WAV requests written
+   and parsed by the port, then pad_or_trim → compute_log_mel →
    encode_xa_kv_q(bits=4) → greedy decode_window with an fp8 self cache and
    timestamp rules (the JAX package's bench prompt and 128-token budget),
    then text. It repeats with an int8 and a bf16 cross slab on a short
    budget, so K3's two forms run in the pipeline too. It checks that logits
    and log-probabilities are finite, that stepwise decoding (the kernels)
    agrees with a teacher-forced prefill (plain PyTorch) of the same tokens,
-   and that every kernel was launched during the slice.
+   and that K1–K4 were launched during the slice;
+5. the beam slice: the same requests and model through decode_window_beam
+   (beam 5, int4 cross slab, bf16 self cache, timestamp rules, 128-token
+   budget). It checks that K5 and K6 each launched once per layer per step
+   and K3/K4 not at all, that log-probabilities are finite, and that
+   decoder_step_beam under random parents and tokens (K5, K6) agrees with a
+   teacher-forced prefill of every hypothesis (plain PyTorch).
 
-The last two lines are one JSON object with each kernel's route, source,
-launch count, error and times, then ``{"ok": true, "device": {...}}``.
+Each path (greedy int4, greedy int8, greedy bf16, beam 5) has its own launch
+counts, set to 0 just before its run and read just after it; each run must
+launch every kernel of its path. ``--profile`` replaces phases 3–5 with a
+breakdown of both slices: stage times, and kernel time, launches and the
+device's idle share per decode step under ``torch.profiler``. The last lines
+are the card, one JSON object with each kernel's route, source, launch count
+on the path its row times (and on every path), error, times and bound, then
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -49,6 +67,35 @@ DURATIONS_S = (5.0, 12.0, 21.0, 30.0)
 DECODE_TOKENS = 128  # the JAX package's bench budget
 SHORT_TOKENS = 16  # the int8 / bf16 cross-slab repeats
 STEP_CHECK_TOKENS = 16  # stepwise vs teacher-forced logits
+BEAM = 5  # the JAX package's default beam_size
+BEAM_STEP_CHECK = 8  # beam steps held against a teacher-forced prefill
+
+# The card's peaks (NVIDIA H100 SXM data sheet, dense, at 700 W): memory
+# bytes/s and operations/s by the type of a kernel's inputs.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"fp32": 67e12, "bf16": 989e12, "int8": 1979e12}
+
+# The TPU kernel each CUDA kernel replaces, its source in the port, and the
+# path whose run gives its JSON row's launch count: the path that runs the
+# form the row times.
+SOURCES = {
+    "log_mel": ("csrc/mel.cu", "sentiric_stt_whisper_service_tpu/ops/pallas_mel.py:74",
+                "greedy_int4"),
+    "flash_attention": ("csrc/flash_attention.cu",
+                        "sentiric_stt_whisper_service_tpu/ops/flash_attention.py:85",
+                        "greedy_int4"),
+    "decode_attention": ("csrc/decode_attention.cu",
+                         "sentiric_stt_whisper_service_tpu/ops/decode_attention.py:146",
+                         "greedy_int8"),
+    "decode_attention_i4": ("csrc/decode_attention.cu",
+                            "sentiric_stt_whisper_service_tpu/ops/decode_attention.py:227",
+                            "greedy_int4"),
+    "beam_attention": ("csrc/beam_attention.cu",
+                       "sentiric_stt_whisper_service_tpu/ops/beam_attention.py:214", "beam5"),
+    "beam_cross_attention": ("csrc/beam_attention.cu",
+                             "sentiric_stt_whisper_service_tpu/ops/beam_attention.py:333",
+                             "beam5"),
+}
 
 
 class SmokeFailure(Exception):
@@ -103,8 +150,23 @@ def speech_like(rng, seconds: float, sr: int = 16000):
     return (0.3 * x / (np.abs(x).max() + 1e-9)).astype(np.float32)
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: float, n_ops: float, kind: str) -> tuple[float, str]:
+    """(least milliseconds the card could take, what bounds it): the bytes
+    over the memory rate or the operations over the peak for ``kind``."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_OPS_PER_S[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def check_kernels(torch, np) -> list[dict]:
-    """Phase 3: each kernel against its plain version at the slice's shapes."""
+    """Phase 3: each kernel against its plain version at the slices' shapes."""
+    import torch.nn.functional as F_
+
+    from sentiric_stt_whisper_service_tpu_torch.ops import beam_attention as ba
     from sentiric_stt_whisper_service_tpu_torch.ops import decode_attention as da
     from sentiric_stt_whisper_service_tpu_torch.ops import fused_mel, mel
     from sentiric_stt_whisper_service_tpu_torch.ops.flash_attention import (
@@ -123,9 +185,14 @@ def check_kernels(torch, np) -> list[dict]:
     rng = np.random.default_rng(SEED)
     rows = []
 
-    def record(name, kernel_fn, plain_fn, tol, why, **meta):
+    def record(name, kernel_fn, plain_fn, tol, why, work, library_fn=None, library_note="",
+               **meta):
         """``tol`` is absolute, or a callable of max |plain| for outputs
-        stored in bf16 (whose rounding step scales with the value)."""
+        stored in bf16 (whose rounding step scales with the value).
+        ``work`` is (bytes moved, operations, input type) for the bound;
+        ``library_fn`` one PyTorch call computing the same function. A
+        ``library_note`` marks a yardstick on other inputs: its time is
+        printed and kept out of the JSON line."""
         got, want = kernel_fn(), plain_fn()
         torch.cuda.synchronize()
         require(got.shape == want.shape and got.dtype == want.dtype,
@@ -136,31 +203,50 @@ def check_kernels(torch, np) -> list[dict]:
         peak = want.float().abs().max().item()
         tol = tol(peak) if callable(tol) else tol
         ms, plain_ms = time_ms(kernel_fn), time_ms(plain_fn)
+        library_ms = time_ms(library_fn) if library_fn is not None else None
+        bound_ms, bound_by = bound(*work)
         ok = err <= tol
-        print(f"  {name:<34} max_abs_err {err:.3e} (tol {tol:.2e}: {why}; max |plain| "
-              f"{peak:.3g})  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  {'OK' if ok else 'FAIL'}")
+        lib_txt = f"{library_ms:.4f} ms{library_note}" if library_ms is not None else "none"
+        print(f"  {name:<38} max_abs_err {err:.3e} (tol {tol:.2e}: {why}; max |plain| "
+              f"{peak:.3g})  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  library {lib_txt}  "
+              f"bound {bound_ms:.4f} ms ({bound_by}: {work[0] / 1e6:.2f} MB, "
+              f"{work[1] / 1e9:.3f} G{work[2]} ops)  {'OK' if ok else 'FAIL'}")
         require(ok, f"{name}: max_abs_err {err:.3e} > tol {tol:.2e}")
-        rows.append(dict(check=name, max_abs_err=err, ms=ms, plain_ms=plain_ms, **meta))
+        rows.append(dict(check=name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         library_ms=library_ms if not library_note else None,
+                         bound_ms=bound_ms, bound_by=bound_by, **meta))
 
     # K1: 4 windows of 30 s at large-v3's 128 mels; both sides through the
     # whole-clip clamp so the tolerance is the JAX package's (atol 3e-4).
+    # The bound counts what the function needs, not the kernel's direct DFT:
+    # per frame a 400-point real FFT (2.5 N log2 N operations), the power (3
+    # per bin), the mel projection over the filterbank's nonzeros (2 each)
+    # and the log; bytes: the audio and filterbank read, the log-mel written.
     audio = torch.from_numpy(
         np.stack([speech_like(rng, 30.0) for _ in range(N_REQUESTS)])).to(dev)
+    n_frames = N_REQUESTS * (audio.shape[-1] // 160)
+    mel_t = fused_mel._bases(128, dev)[2]
+    mel_ops = n_frames * (2.5 * 400 * np.log2(400) + 201 * 3 + 2 * int((mel_t != 0).sum()) + 128)
+    mel_bytes = nbytes(audio, mel_t) + n_frames * 128 * 4
     record("K1 log_mel [4,480000]->[4,3000,128]",
            lambda: mel.clamp_and_scale(fused_mel.log_mel_power_fused(audio, 128)),
            lambda: mel.clamp_and_scale(mel.log_mel_power(audio, 128)),
-           3e-4, "fp32 sums in another order", kernel="log_mel")
+           3e-4, "fp32 sums in another order", (mel_bytes, mel_ops, "fp32"),
+           kernel="log_mel", main=True)
 
     # K2: the encoder's attention shape, bf16, q and k pre-scaled.
     shape = (N_REQUESTS, 20, 1500, 64)
     q = (torch.randn(shape, generator=g, device=dev) * 0.3).bfloat16()
     k = (torch.randn(shape, generator=g, device=dev) * 0.3).bfloat16()
     v = torch.randn(shape, generator=g, device=dev).bfloat16()
+    B_, H_, L_, D_ = shape
     record("K2 flash_attention [4,20,1500,64]",
            lambda: flash_attention(q, k, v), lambda: attention_reference(q, k, v),
            lambda peak: 2**-5 * peak,
            "4 bf16 steps at max |plain|: weights and output rounded to bf16",
-           kernel="flash_attention")
+           (nbytes(q, k, v, q), 4 * B_ * H_ * L_ * L_ * D_, "bf16"),
+           library_fn=lambda: F_.scaled_dot_product_attention(q, k, v, scale=1.0),
+           kernel="flash_attention", main=True)
 
     # K3 / K4: the decode step's cross read, [S=4, H=20, hd=64, F=1500].
     S, H, HD, F = N_REQUESTS, 20, 64, 1500
@@ -171,27 +257,105 @@ def check_kernels(torch, np) -> list[dict]:
     scale = HD ** -0.5
     tol = lambda peak: 2**-6 * peak  # noqa: E731
     why = "2 bf16 steps at max |plain|: fp32 sums, bf16 output"
+    slab_ops = 4 * S * H * HD * F
     record("K3 decode_attention bf16", lambda: da.decode_attention(q1, kb, vb, scale=scale),
            lambda: da.decode_attention_reference(q1, kb, vb, scale=scale),
-           tol, why, kernel="decode_attention")
+           tol, why, (nbytes(q1, kb, vb, q1), slab_ops, "bf16"),
+           library_fn=lambda: F_.scaled_dot_product_attention(
+               q1[:, :, None], kb.transpose(-1, -2), vb.transpose(-1, -2), scale=scale),
+           kernel="decode_attention")
     pos = torch.tensor([0, 17, 700, F - 1], dtype=torch.int32, device=dev)
+    live = int((pos + 1).sum())  # positions the causal bound leaves
     record("K3 decode_attention bf16 causal",
            lambda: da.decode_attention(q1, kb, vb, pos=pos, scale=scale),
            lambda: da.decode_attention_reference(q1, kb, vb, pos=pos, scale=scale),
-           tol, why, kernel="decode_attention")
+           tol, why, (nbytes(q1, q1, pos) + live * H * HD * 2 * 2, 4 * H * HD * live, "bf16"),
+           kernel="decode_attention")
     k8, k8s = quantize_weight(ks, axis=-2)
     v8, v8s = quantize_weight(vs, axis=-2)
     record("K3 decode_attention int8",
            lambda: da.decode_attention(q1, k8, v8, k8s, v8s, scale=scale),
            lambda: da.decode_attention_reference(q1, k8, v8, k8s, v8s, scale=scale),
-           tol, why, kernel="decode_attention")
+           tol, why, (nbytes(q1, k8, v8, k8s, v8s, q1), slab_ops, "int8"),
+           kernel="decode_attention", main=True)
     k4, k4s = _quantize_kv(ks, 4)
     v4, v4s = _quantize_kv(vs, 4)
     record("K4 decode_attention_i4",
            lambda: da.decode_attention_i4(q1, k4, v4, k4s, v4s, scale=scale),
            lambda: da.decode_attention_reference(
                q1, unpack_nibbles_i8(k4), unpack_nibbles_i8(v4), k4s, v4s, scale=scale),
-           tol, why, kernel="decode_attention_i4")
+           tol, why, (nbytes(q1, k4, v4, k4s, v4s, q1), slab_ops, "int8"),
+           kernel="decode_attention_i4", main=True)
+
+    # K5: the beam step's self read at the beam slice's shapes: 4 items x 5
+    # beams, slot caches of 160 rows (128 tokens after a 3-token prompt),
+    # random ancestry paths (one source slot per beam and position before
+    # pos, none after), both 128-row read buckets.
+    K, C = BEAM, 160
+    qb = torch.randn((S * K, H, HD), generator=g, device=dev).bfloat16()
+    kc = torch.randn((S * K, H, C, HD), generator=g, device=dev) * 0.3
+    vc = torch.randn((S * K, H, C, HD), generator=g, device=dev) * 0.3
+    kcb, vcb = kc.bfloat16(), vc.bfloat16()
+    kc8, kc8s = quantize_weight(kc, axis=-1)  # per-row scales [S*K, H, C]
+    vc8, vc8s = quantize_weight(vc, axis=-1)
+    for c_valid, at in ((128, 100), (160, 150)):
+        src = torch.randint(0, K, (S, K, C), generator=g, device=dev)
+        anc = F_.one_hot(src, K).permute(0, 1, 3, 2).bool().contiguous()  # [S, Kd, Ks, C]
+        anc[..., at:] = False
+        read = anc[..., :c_valid]
+        rows_read = int(read.any(dim=1).sum()) * H  # (slot, head, position) rows on a path
+        entries = int(read.sum()) * H  # (beam, slot, head, position) scores
+        # SDPA yardstick on a pre-folded copy [S, H, K*c_valid, 64] with the
+        # ancestry as a boolean mask; the fold is not timed.
+        fold = lambda x: (x.reshape(S, K, H, C, HD)[:, :, :, :c_valid]  # noqa: E731
+                          .permute(0, 2, 1, 3, 4).reshape(S, H, K * c_valid, HD).contiguous())
+        qf = qb.reshape(S, K, H, HD).transpose(1, 2).contiguous()
+        kf, vf = fold(kcb), fold(vcb)
+        mask = read.reshape(S, 1, K, K * c_valid)
+        for form in ("bf16", "int8"):
+            if form == "bf16":
+                args, kw, itemsize = (qb, kcb, vcb, anc, K), {}, 2
+            else:
+                args, kw, itemsize = (qb, kc8, vc8, anc, K), dict(k_scale=kc8s, v_scale=vc8s), 1
+            kw.update(scale=scale, c_valid=c_valid)
+            scale_bytes = rows_read * 4 * 2 if form == "int8" else 0
+            record(f"K5 beam_attention {form} c_valid={c_valid}",
+                   lambda args=args, kw=kw: ba.beam_attention(*args, **kw),
+                   lambda args=args, kw=kw: ba.beam_attention_reference(*args, **kw),
+                   tol, why,
+                   (nbytes(qb, qb, read) + rows_read * HD * itemsize * 2 + scale_bytes,
+                    4 * HD * entries, form),
+                   library_fn=(lambda kf=kf, vf=vf, mask=mask: F_.scaled_dot_product_attention(
+                       qf, kf, vf, attn_mask=mask, scale=scale)) if form == "bf16" else None,
+                   library_note=" (SDPA on a pre-folded copy, fold not timed)",
+                   kernel="beam_attention", main=(form == "bf16" and c_valid == 128))
+
+    # K6: the beam step's cross read, the 5 beams of each item against its
+    # shared slab [4, 20, 64, 1500]. The plain version rounds its softmax
+    # weights to bf16 (the JAX package's _attend_xa), the kernel keeps them
+    # in fp32: four bf16 steps.
+    q6 = torch.randn((S, H, K, HD), generator=g, device=dev).bfloat16()
+    tol6 = lambda peak: 2**-5 * peak  # noqa: E731
+    why6 = "4 bf16 steps at max |plain|: plain weights rounded to bf16"
+    cross_ops = 4 * S * H * K * HD * F
+    record("K6 beam_cross_attention bf16",
+           lambda: ba.beam_cross_attention(q6, kb, vb, scale=scale),
+           lambda: ba.beam_cross_attention_reference(q6, kb, vb, scale=scale),
+           tol6, why6, (nbytes(q6, kb, vb, q6), cross_ops, "bf16"),
+           library_fn=lambda: F_.scaled_dot_product_attention(
+               q6, kb.transpose(-1, -2), vb.transpose(-1, -2), scale=scale),
+           kernel="beam_cross_attention")
+    record("K6 beam_cross_attention int8",
+           lambda: ba.beam_cross_attention(q6, k8, v8, k8s, v8s, scale=scale),
+           lambda: ba.beam_cross_attention_reference(q6, k8, v8, k8s, v8s, scale=scale),
+           tol6, why6, (nbytes(q6, k8, v8, k8s, v8s, q6), cross_ops, "int8"),
+           kernel="beam_cross_attention")
+    record("K6 beam_cross_attention int4",
+           lambda: ba.beam_cross_attention_i4(q6, k4, v4, k4s, v4s, scale=scale),
+           lambda: ba.beam_cross_attention_reference(
+               q6, unpack_nibbles_i8(k4), unpack_nibbles_i8(v4), k4s, v4s, scale=scale),
+           tol6, why6, (nbytes(q6, k4, v4, k4s, v4s, q6), cross_ops, "int8"),
+           kernel="beam_cross_attention", main=True)
     return rows
 
 
@@ -210,13 +374,13 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     try:
-        return run(torch, np)
+        return run(torch, np, profile="--profile" in sys.argv[1:])
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
 
 
-def run(torch, np) -> int:
+def run(torch, np, profile: bool = False) -> int:
     from sentiric_stt_whisper_service_tpu_torch import kernels
     from sentiric_stt_whisper_service_tpu_torch.audio import (
         parse_wav_robust,
@@ -228,11 +392,14 @@ def run(torch, np) -> int:
         build_suppress_mask,
         config_for,
         decode_window,
+        decode_window_beam,
         decoder_apply,
+        decoder_step_beam,
         encode_xa_kv,
         encode_xa_kv_q,
         init_params,
     )
+    from sentiric_stt_whisper_service_tpu_torch.models.beam import read_bucket
     from sentiric_stt_whisper_service_tpu_torch.models.whisper import decoder_step, init_kv_cache
     from sentiric_stt_whisper_service_tpu_torch.ops import compute_log_mel, pad_or_trim
     from sentiric_stt_whisper_service_tpu_torch.ops.quant import fuse_decoder_qkv, quantize_params
@@ -259,7 +426,7 @@ def run(torch, np) -> int:
     print(f"== 3. kernel checks [{card}]")
     checks = check_kernels(torch, np)
 
-    print(f"== 4. slice: large-v3, int8 weights, int4 cross slab, fp8 self cache, greedy "
+    print(f"== 4. greedy slice: large-v3, int8 weights, int4 cross slab, fp8 self cache "
           f"[{card}]")
     dev = torch.device("cuda")
     cfg = config_for("large-v3")
@@ -276,8 +443,9 @@ def run(torch, np) -> int:
     ids = TokenIds.from_tokenizer(tok)
     sup = torch.from_numpy(build_suppress_mask(cfg.n_vocab, ids, tok.non_speech_tokens)).to(dev)
     sot = tok.sot_sequence("en")
+    sb = len(sot)
     tinit = torch.full((N_REQUESTS, cfg.n_text_ctx), ids.eot, dtype=torch.int64, device=dev)
-    tinit[:, : len(sot)] = torch.tensor(sot, device=dev)
+    tinit[:, :sb] = torch.tensor(sot, device=dev)
 
     rng = np.random.default_rng(SEED)
     wavs = []
@@ -291,56 +459,66 @@ def run(torch, np) -> int:
     audio_s = sum(len(d.pcm_data) for d in decoded) / 16000.0
     audio = torch.from_numpy(audio_np).to(dev)
 
-    def pipeline(bits: int, self_dtype, budget: int):
+    def pipeline(bits: int, self_dtype, budget: int, beam: int = 0):
         mel = compute_log_mel(audio, n_mels=cfg.n_mels, dtype=cfg.dtype)
         require(tuple(mel.shape) == (N_REQUESTS, 3000, cfg.n_mels), f"mel shape {tuple(mel.shape)}")
         xa = encode_xa_kv_q(cfg, model, mel, bits) if bits else encode_xa_kv(cfg, model, mel)
-        return xa, decode_window(cfg, model, xa, tinit, len(sot), 0, ids, sup,
-                                 max_len=len(sot) + budget, self_dtype=self_dtype)
+        if beam:
+            return xa, decode_window_beam(cfg, model, xa, tinit, sb, 0, ids, sup,
+                                          beam_size=beam, max_len=sb + budget)
+        return xa, decode_window(cfg, model, xa, tinit, sb, 0, ids, sup,
+                                 max_len=sb + budget, self_dtype=self_dtype)
 
-    def timed(bits, self_dtype, budget):
+    def timed(bits, self_dtype, budget, beam=0):
         torch.cuda.synchronize()
         t = time.perf_counter()
         with torch.inference_mode():
-            xa, res = pipeline(bits, self_dtype, budget)
+            xa, res = pipeline(bits, self_dtype, budget, beam)
         torch.cuda.synchronize()
         return xa, res, time.perf_counter() - t
 
-    f8 = torch.float8_e4m3fn
-    _, _, warm = timed(4, f8, 4)
-    print(f"  warm-up run (4 tokens): {warm:.2f} s")
-
-    kernels.reset_launch_counts()
-    for label, bits, self_dtype, budget in (
-        ("int4 slab, fp8 self cache", 4, f8, DECODE_TOKENS),
-        ("int8 slab, fp8 self cache", 8, f8, SHORT_TOKENS),
-        ("bf16 slab, bf16 self cache", 0, None, SHORT_TOKENS),
-    ):
-        before = dict(kernels.LAUNCHES)
-        xa, res, wall = timed(bits, self_dtype, budget)
-        launched = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+    def report(label, res, wall, budget, launched, show_text):
         lengths = res.lengths.tolist()
-        n_tok = [n - len(sot) for n in lengths]
-        sb = len(sot)
+        n_tok = [n - sb for n in lengths]
         lp = torch.cat([res.token_logprobs[i, sb:n] for i, n in enumerate(lengths)])
         require(bool(torch.isfinite(lp).all()), f"{label}: non-finite token log-probabilities")
-        require(bool(torch.isfinite(res.no_speech_probs).all()), f"{label}: non-finite no-speech probs")
+        for name in ("no_speech_probs", "sum_logprobs", "avg_logprobs"):
+            require(bool(torch.isfinite(getattr(res, name)).all()), f"{label}: non-finite {name}")
         print(f"  [{label}] budget {budget}: wall {wall:.3f} s, {audio_s / wall:.1f} audio-s/s, "
               f"{sum(n_tok) / wall:.1f} tokens/s [{card}]; launches {launched}")
-        if bits == 4:
+        if show_text:
             for i in range(N_REQUESTS):
                 toks = res.tokens[i, sb : lengths[i]].tolist()
                 text = tok.decode_with_timestamps(toks)
                 print(f"    request {i} ({DURATIONS_S[i]:.0f} s): {n_tok[i]} tokens, first "
                       f"{toks[:8]}, text {ascii(text[:72])}")
+
+    f8 = torch.float8_e4m3fn
+    _, _, warm = timed(4, f8, 4)
+    print(f"  warm-up run (4 tokens): {warm:.2f} s")
+    if profile:
+        profile_slices(torch, cfg, model, audio, timed, card)
+        print(card)
+        return 0
+
+    paths = {}  # path -> the launch counts of its run
+    for path, label, bits, self_dtype, budget, cross_read in (
+        ("greedy_int4", "int4 slab, fp8 self cache", 4, f8, DECODE_TOKENS, "decode_attention_i4"),
+        ("greedy_int8", "int8 slab, fp8 self cache", 8, f8, SHORT_TOKENS, "decode_attention"),
+        ("greedy_bf16", "bf16 slab, bf16 self cache", 0, None, SHORT_TOKENS, "decode_attention"),
+    ):
+        kernels.reset_launch_counts()
+        xa, res, wall = timed(bits, self_dtype, budget)
+        paths[path] = dict(kernels.LAUNCHES)
+        report(f"{path}: {label}", res, wall, budget, paths[path], show_text=bits == 4)
+        for name in ("log_mel", "flash_attention", cross_read):
+            require(paths[path][name] > 0, f"{path}: kernel {name} was not launched")
+        if bits == 4:
             main_xa, main_tokens = xa, res.tokens
-    launches = dict(kernels.LAUNCHES)
-    for name, n in launches.items():
-        require(n > 0, f"kernel {name} was not launched during the slice")
 
     # Stepwise decoding (K4 cross read, fp8 self cache) against a
     # teacher-forced prefill of the same tokens (plain cross read).
-    T = len(sot) + STEP_CHECK_TOKENS
+    T = sb + STEP_CHECK_TOKENS
     seq = main_tokens[:, :T]
     with torch.inference_mode():
         kv = init_kv_cache(cfg, N_REQUESTS, 160, dtype=f8, device=dev)
@@ -351,39 +529,79 @@ def run(torch, np) -> int:
             logits, kv = decoder_step(cfg, model, seq[:, p], p, kv, main_xa)
             step_logits.append(logits)
         stepwise = torch.stack(step_logits, dim=1)
-    require(bool(torch.isfinite(full).all()) and bool(torch.isfinite(stepwise).all()),
-            "non-finite logits")
-    diff = (full - stepwise).abs().max().item()
-    spread = full.std().item()
-    agree = (full.argmax(-1) == stepwise.argmax(-1)).float().mean().item()
-    print(f"  stepwise vs teacher-forced logits over {T} positions: max |diff| {diff:.4f} "
-          f"(logit std {spread:.3f}), argmax agreement {agree:.3f}")
     # The two paths round bf16 activations in different GEMM shapes and the
     # cross read in different places (K4 keeps fp32 weights, the prefill
     # rounds them to bf16), and the drift compounds over 32 layers; a wrong
     # cross read moves the logits by the order of their spread.
-    require(diff <= 0.25 * spread and agree >= 0.9,
-            f"stepwise logits differ by {diff:.4f} (bound 0.25 x std {spread:.3f}), "
-            f"argmax agreement {agree:.3f} (bound 0.9)")
+    drift_check("stepwise vs teacher-forced", full, stepwise, torch)
     print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
-    sources = {
-        "log_mel": ("csrc/mel.cu", "sentiric_stt_whisper_service_tpu/ops/pallas_mel.py:74"),
-        "flash_attention": ("csrc/flash_attention.cu",
-                            "sentiric_stt_whisper_service_tpu/ops/flash_attention.py:85"),
-        "decode_attention": ("csrc/decode_attention.cu",
-                             "sentiric_stt_whisper_service_tpu/ops/decode_attention.py:146"),
-        "decode_attention_i4": ("csrc/decode_attention.cu",
-                                "sentiric_stt_whisper_service_tpu/ops/decode_attention.py:227"),
-    }
+    print(f"== 5. beam slice: large-v3, int8 weights, int4 cross slab, bf16 self cache, "
+          f"beam {BEAM} [{card}]")
+    _, _, warm = timed(4, None, 4, beam=BEAM)
+    print(f"  warm-up run (4 tokens): {warm:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    xa, res, wall = timed(4, None, DECODE_TOKENS, beam=BEAM)
+    paths["beam5"] = beam_launches = dict(kernels.LAUNCHES)
+    report(f"beam5: int4 slab, bf16 self cache, beam {BEAM}", res, wall, DECODE_TOKENS,
+           beam_launches, show_text=True)
+    print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    L = cfg.n_text_layer
+    n_k5, n_k6 = beam_launches["beam_attention"], beam_launches["beam_cross_attention"]
+    require(n_k5 > 0 and n_k5 == n_k6 and n_k5 % L == 0,
+            f"beam slice: K5 launched {n_k5} and K6 {n_k6} times, not once per layer per step")
+    print(f"  K5 and K6: {n_k5} launches each = {L} layers x {n_k5 // L} steps")
+    require(beam_launches["log_mel"] > 0 and beam_launches["flash_attention"] > 0,
+            "beam slice: the frontend or encoder kernels were not launched")
+    require(beam_launches["decode_attention"] == beam_launches["decode_attention_i4"] == 0,
+            "beam slice: the greedy cross-read kernels ran in the beam step")
+
+    # decoder_step_beam (K5 over the slot caches, K6 over the shared int4
+    # slab) under random parents and tokens, held against a teacher-forced
+    # prefill of every hypothesis with plain attention.
+    B, K, C = N_REQUESTS, BEAM, 160
+    gen = np.random.default_rng(SEED + 1)
+    with torch.inference_mode():
+        prompt = tinit[:, :sb]
+        kv_b = init_kv_cache(cfg, B, C, device=dev)
+        _, kv_b = decoder_apply(cfg, model, prompt, 0, kv_b, xa)
+        kv = init_kv_cache(cfg, B * K, C, device=dev)
+        for name, x in kv_b.items():
+            kv[name].view(x.shape[0], B, K, *x.shape[2:])[:, :, 0] = x
+        anc = torch.zeros((B, K, K, C), dtype=torch.bool, device=dev)
+        anc[:, :, 0, :sb] = True
+        eye = torch.eye(K, dtype=torch.bool, device=dev)
+        hyps = prompt.repeat_interleave(K, dim=0)  # [B*K, t]
+        xa_bk = {name: x.repeat_interleave(K, dim=1) for name, x in xa.items()}
+        got, want = [], []
+        for p in range(sb, sb + BEAM_STEP_CHECK):
+            parent = torch.from_numpy(gen.integers(0, K, size=(B, K))).to(dev)
+            toks = torch.from_numpy(gen.integers(100, 40000, size=(B * K,))).to(dev)
+            anc = anc[torch.arange(B, device=dev)[:, None], parent]
+            anc[:, :, :, p] |= eye
+            hyps = torch.cat([hyps[(parent + torch.arange(B, device=dev)[:, None] * K)
+                                   .reshape(-1)], toks[:, None]], dim=1)
+            logits, kv = decoder_step_beam(cfg, model, toks, p, kv, xa, anc, K,
+                                           c_valid=read_bucket(p, C))
+            full, _ = decoder_apply(cfg, model, hyps, 0, init_kv_cache(cfg, B * K, C, device=dev),
+                                    xa_bk)
+            got.append(logits)
+            want.append(full[:, -1])
+    drift_check(f"beam steps vs teacher-forced hypotheses ({BEAM_STEP_CHECK} steps)",
+                torch.stack(want, 1), torch.stack(got, 1), torch)
+
     kernels_json = []
-    for name, (src, replaces) in sources.items():
+    for name, (src, replaces, path) in SOURCES.items():
         mine = [c for c in checks if c["kernel"] == name]
-        timed_row = mine[-1]  # the int8 form for K3: the cross read's form
+        row = next(c for c in mine if c.get("main"))  # the form the JSON row times
         kernels_json.append({
             "name": name, "route": "cuda", "source": f"{PKG}/{src}", "replaces": replaces,
-            "launches": launches[name], "max_abs_err": max(c["max_abs_err"] for c in mine),
-            "ms": timed_row["ms"], "plain_ms": timed_row["plain_ms"],
+            "launches": paths[path][name], "launches_path": path,
+            "launches_by_path": {p: counts[name] for p, counts in paths.items()},
+            "max_abs_err": max(c["max_abs_err"] for c in mine),
+            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         })
     print(card)
     print(json.dumps({"kernels": kernels_json}))
@@ -391,6 +609,83 @@ def run(torch, np) -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def profile_slices(torch, cfg, model, audio, timed, card) -> None:
+    """Where the time goes in each slice (int4 cross slab): stage times
+    (CUDA-synchronised host clock), then kernel time, device launches and
+    idle share per decode step from torch.profiler, as the difference of an
+    8- and a 40-token run (32 steps), and the kernels that take most of it."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    from sentiric_stt_whisper_service_tpu_torch.models import encode_xa_kv_q, encoder_apply
+    from sentiric_stt_whisper_service_tpu_torch.ops import compute_log_mel
+
+    def wall_ms(fn, reps=3):
+        best = float("inf")
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            best = min(best, (time.perf_counter() - t) * 1e3)
+        return best
+
+    with torch.inference_mode():
+        mel = compute_log_mel(audio, n_mels=cfg.n_mels, dtype=cfg.dtype)
+        t_mel = wall_ms(lambda: compute_log_mel(audio, n_mels=cfg.n_mels, dtype=cfg.dtype))
+        t_enc = wall_ms(lambda: encoder_apply(cfg, model, mel))
+        t_xa = wall_ms(lambda: encode_xa_kv_q(cfg, model, mel, 4)) - t_enc
+    print(f"  stages, best of 3 [{card}]: log-mel {t_mel:.2f} ms, encoder {t_enc:.2f} ms, "
+          f"int4 cross K/V {t_xa:.2f} ms (encode_xa_kv_q minus the encoder)")
+
+    short, long_ = 8, 40
+    for label, self_dtype, beam in (("greedy, fp8 self cache", torch.float8_e4m3fn, 0),
+                                    (f"beam {BEAM}, bf16 self cache", None, BEAM)):
+        runs = {}
+        for n in (short, long_):
+            with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                _, _, wall = timed(4, self_dtype, n, beam)
+            by_name = {}
+            for e in prof.events():
+                if e.device_type == torch.autograd.DeviceType.CUDA:
+                    t_us, count = by_name.get(e.name, (0.0, 0))
+                    by_name[e.name] = (t_us + e.time_range.elapsed_us(), count + 1)
+            busy = sum(t for t, _ in by_name.values()) / 1e3
+            launches = sum(c for _, c in by_name.values())
+            runs[n] = (wall * 1e3, busy, launches, by_name)
+            print(f"  [{label}] {n} tokens under the profiler: wall {wall * 1e3:.1f} ms, device "
+                  f"busy {busy:.1f} ms ({launches} device events), idle "
+                  f"{100 * (1 - busy / (wall * 1e3)):.1f} %")
+        steps = long_ - short
+        (w0, b0, l0, _), (w1, b1, l1, names) = runs[short], runs[long_]
+        print(f"  [{label}] per decode step ({long_} minus {short} tokens): wall "
+              f"{(w1 - w0) / steps:.2f} ms, device busy {(b1 - b0) / steps:.3f} ms, "
+              f"{(l1 - l0) / steps:.0f} device events [{card}]")
+        ranked = sorted(names.items(), key=lambda kv: -kv[1][0])
+        ours = ("log_mel_kernel", "flash_attention_kernel", "slab_attention_kernel",
+                "beam_attention_kernel")
+        print(f"    the {long_}-token run's top kernels, then the port's own:")
+        for name, (t_us, count) in ranked[:8] + [r for r in ranked[8:] if any(
+                o in r[0] for o in ours)]:
+            print(f"    {t_us / 1e3:9.2f} ms {count:7d}x {t_us / count:8.2f} us  {name[:90]}")
+
+
+def drift_check(label, reference, stepwise, torch) -> None:
+    """Stepwise logits (the kernels) against teacher-forced ones (plain
+    attention): max |diff| within a quarter of the logits' spread and the
+    argmax agreeing on 90 % of positions."""
+    require(bool(torch.isfinite(reference).all()) and bool(torch.isfinite(stepwise).all()),
+            f"{label}: non-finite logits")
+    diff = (reference - stepwise).abs().max().item()
+    spread = reference.std().item()
+    agree = (reference.argmax(-1) == stepwise.argmax(-1)).float().mean().item()
+    print(f"  {label}, {reference.shape[1]} positions: max |diff| {diff:.4f} "
+          f"(logit std {spread:.3f}), argmax agreement {agree:.3f}")
+    require(diff <= 0.25 * spread and agree >= 0.9,
+            f"{label}: logits differ by {diff:.4f} (bound 0.25 x std {spread:.3f}), "
+            f"argmax agreement {agree:.3f} (bound 0.9)")
 
 
 if __name__ == "__main__":

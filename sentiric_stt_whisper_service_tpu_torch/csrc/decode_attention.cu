@@ -13,177 +13,34 @@
 // production path calls for this step. K4 matches that function on the
 // unpacked slab (fp32 weights), not the Pallas _i4_kernel's bf16 weights.
 //
-// What it computes, per (item s, head h):
+// The kernel is csrc/slab_attention.cuh's slab_attention_kernel with one
+// query row (M = 1): what it computes, what bounds it on the H100 and how it
+// is laid out are written there. Per (item s, head h):
 //   score[f] = (q . k[:, f]) * scale * k_scale[f]    (f <= pos[s] if given)
 //   w[f]     = softmax(score)[f] * v_scale[f]
 //   out[d]   = sum_f w[f] * v[d, f]                  (fp32, stored as bf16)
-//
-// Bound on the H100: device memory. Each (s, h) reads its slab once (64 x 1500
-// bytes at int8 for the cross read) for 4 flops per slab element, far below
-// the ridge point. Design (simple first): one block of 256 threads per
-// (s, h). Pass 1: each thread takes positions f, f + 256, ...; for each of the
-// 64 d it reads k[d][f], so consecutive threads read consecutive bytes of one
-// row of the KF layout. Scores go to shared memory (F floats, 6 KB at
-// F = 1500), then a block max and sum give the softmax weights in place,
-// with v_scale folded in. Pass 2: each warp owns 8 of the 64 output
-// channels; its lanes stride the positions of one row of v and reduce with
-// shuffles. The int4 form reads the packed carrier: byte j holds position j in
-// its low nibble and position j + F/2 in its high nibble; both are unpacked
-// in registers with sign-extending shifts, so the slab crosses device memory
-// at half a byte per element. Later work: split F across blocks (only S*H =
-// 80 blocks at the smoke shape for 132 SMs) and wider loads.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-namespace {
-
-constexpr int HD = 64;
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr float NEG = -1e30f;  // the JAX package's mask value
-
-enum Form { kBf16 = 0, kInt8 = 1, kInt4 = 2 };
-
-__device__ __forceinline__ float block_reduce(float x, float* red, bool is_max) {
-  for (int off = 16; off > 0; off >>= 1) {
-    const float y = __shfl_xor_sync(0xffffffffu, x, off);
-    x = is_max ? fmaxf(x, y) : x + y;
-  }
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  __syncthreads();  // red[] free from any earlier reduction
-  if (lane == 0) red[warp] = x;
-  __syncthreads();
-  x = red[0];
-  for (int w = 1; w < WARPS; ++w) x = is_max ? fmaxf(x, red[w]) : x + red[w];
-  return x;
-}
-
-__device__ __forceinline__ float lo_nibble(int8_t b) { return static_cast<float>(((b & 0x0F) ^ 8) - 8); }
-__device__ __forceinline__ float hi_nibble(int8_t b) { return static_cast<float>(b >> 4); }
-
-template <int FORM>
-__device__ __forceinline__ float slab_at(const void* slab, size_t i) {
-  if constexpr (FORM == kBf16) {
-    return __bfloat162float(static_cast<const __nv_bfloat16*>(slab)[i]);
-  } else {
-    return static_cast<float>(static_cast<const int8_t*>(slab)[i]);
-  }
-}
-
-template <int FORM>
-__global__ void __launch_bounds__(THREADS)
-decode_attention_kernel(const __nv_bfloat16* __restrict__ q,  // [S, H, HD]
-                        const void* __restrict__ k,           // [S, H, HD, F] (F/2 for int4)
-                        const void* __restrict__ v,
-                        const float* __restrict__ k_scale,    // [S, H, F]
-                        const float* __restrict__ v_scale,
-                        const int* __restrict__ pos,          // [S] or null
-                        __nv_bfloat16* __restrict__ out,      // [S, H, HD]
-                        int H, int F, float scale) {
-  extern __shared__ float w[];  // [F]
-  __shared__ float qs[HD];
-  __shared__ float red[WARPS];
-
-  const int sh = blockIdx.x;  // s * H + h
-  const int row = (FORM == kInt4) ? F / 2 : F;  // slab row length
-  const size_t slab = static_cast<size_t>(sh) * HD * row;
-  const float* ks = (FORM == kBf16) ? nullptr : k_scale + static_cast<size_t>(sh) * F;
-  const float* vs = (FORM == kBf16) ? nullptr : v_scale + static_cast<size_t>(sh) * F;
-  const int limit = pos ? pos[sh / H] : F - 1;
-
-  if (threadIdx.x < HD) qs[threadIdx.x] = __bfloat162float(q[sh * HD + threadIdx.x]) * scale;
-  __syncthreads();
-
-  float mx = NEG;
-  if constexpr (FORM == kInt4) {
-    const int8_t* kp = static_cast<const int8_t*>(k) + slab;
-    for (int j = threadIdx.x; j < row; j += THREADS) {
-      float lo = 0.f, hi = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < HD; ++d) {
-        const int8_t b = kp[d * row + j];
-        lo = fmaf(qs[d], lo_nibble(b), lo);
-        hi = fmaf(qs[d], hi_nibble(b), hi);
-      }
-      lo *= ks[j];
-      hi *= ks[j + row];
-      w[j] = lo;
-      w[j + row] = hi;
-      mx = fmaxf(mx, fmaxf(lo, hi));
-    }
-  } else {
-    for (int f = threadIdx.x; f < F; f += THREADS) {
-      float acc = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < HD; ++d) acc = fmaf(qs[d], slab_at<FORM>(k, slab + d * F + f), acc);
-      if constexpr (FORM == kInt8) acc *= ks[f];
-      if (f > limit) acc = NEG;
-      w[f] = acc;
-      mx = fmaxf(mx, acc);
-    }
-  }
-  mx = block_reduce(mx, red, true);
-
-  float sum = 0.f;
-  for (int f = threadIdx.x; f < F; f += THREADS) {
-    const float e = expf(w[f] - mx);
-    w[f] = e;
-    sum += e;
-  }
-  const float inv = 1.f / block_reduce(sum, red, false);
-  for (int f = threadIdx.x; f < F; f += THREADS) w[f] = (FORM == kBf16) ? w[f] * inv : w[f] * inv * vs[f];
-  __syncthreads();
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int d = warp; d < HD; d += WARPS) {
-    float acc = 0.f;
-    if constexpr (FORM == kInt4) {
-      const int8_t* vr = static_cast<const int8_t*>(v) + slab + static_cast<size_t>(d) * row;
-      for (int j = lane; j < row; j += 32) {
-        const int8_t b = vr[j];
-        acc = fmaf(w[j], lo_nibble(b), acc);
-        acc = fmaf(w[j + row], hi_nibble(b), acc);
-      }
-    } else {
-      for (int f = lane; f < F; f += 32) acc = fmaf(w[f], slab_at<FORM>(v, slab + static_cast<size_t>(d) * F + f), acc);
-    }
-    for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (lane == 0) out[sh * HD + d] = __float2bfloat16(acc);
-  }
-}
-
-template <int FORM>
-int launch(const void* q, const void* k, const void* v, const void* k_scale, const void* v_scale,
-           const void* pos, void* out, int S, int H, int F, float scale, void* stream) {
-  decode_attention_kernel<FORM>
-      <<<S * H, THREADS, F * sizeof(float), static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const __nv_bfloat16*>(q), k, v, static_cast<const float*>(k_scale),
-          static_cast<const float*>(v_scale), static_cast<const int*>(pos),
-          static_cast<__nv_bfloat16*>(out), H, F, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
+#include "slab_attention.cuh"
 
 extern "C" int sstw_decode_attention_bf16(const void* q, const void* k, const void* v,
                                           const void* pos, void* out, int S, int H, int F,
                                           float scale, void* stream) {
-  return launch<kBf16>(q, k, v, nullptr, nullptr, pos, out, S, H, F, scale, stream);
+  return slab::launch<slab::kBf16, 1>(q, k, v, nullptr, nullptr, pos, out, S, H, F, 1, scale,
+                                      stream);
 }
 
 extern "C" int sstw_decode_attention_i8(const void* q, const void* k, const void* v,
                                         const void* k_scale, const void* v_scale,
                                         const void* pos, void* out, int S, int H, int F,
                                         float scale, void* stream) {
-  return launch<kInt8>(q, k, v, k_scale, v_scale, pos, out, S, H, F, scale, stream);
+  return slab::launch<slab::kInt8, 1>(q, k, v, k_scale, v_scale, pos, out, S, H, F, 1, scale,
+                                      stream);
 }
 
 extern "C" int sstw_decode_attention_i4(const void* q, const void* k_packed,
                                         const void* v_packed, const void* k_scale,
                                         const void* v_scale, void* out, int S, int H, int F,
                                         float scale, void* stream) {
-  return launch<kInt4>(q, k_packed, v_packed, k_scale, v_scale, nullptr, out, S, H, F, scale,
-                       stream);
+  return slab::launch<slab::kInt4, 1>(q, k_packed, v_packed, k_scale, v_scale, nullptr, out, S,
+                                      H, F, 1, scale, stream);
 }

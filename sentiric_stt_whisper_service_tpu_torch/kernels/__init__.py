@@ -1,7 +1,22 @@
 """Build and load the hand-written Hopper kernels of ``csrc/``.
 
-One ``nvcc`` call compiles every ``csrc/*.cu`` for ``sm_90a`` into one shared
-library with a plain C interface, loaded through ``ctypes``. The library
+The kernels, each with the TPU kernel of the JAX package it replaces:
+
+  * K1 ``log_mel`` (``csrc/mel.cu``): ``ops/pallas_mel.py:74``;
+  * K2 ``flash_attention`` (``csrc/flash_attention.cu``):
+    ``ops/flash_attention.py:85``;
+  * K3 ``decode_attention`` and K4 ``decode_attention_i4``
+    (``csrc/decode_attention.cu``): ``ops/decode_attention.py:146`` and
+    ``:227``;
+  * K5 ``beam_attention`` and K6 ``beam_cross_attention``
+    (``csrc/beam_attention.cu``): ``ops/beam_attention.py:214`` and ``:333``.
+
+K3, K4 and K6 share one slab-attention template
+(``csrc/slab_attention.cuh``).
+
+One ``nvcc`` per ``csrc/*.cu``, all started together, compiles each source
+for ``sm_90a``; one more links the objects into one shared library with a
+plain C interface, loaded through ``ctypes``. The library
 goes to ``_build/`` beside this package, named by a hash of the sources and
 flags, so a changed source builds anew and an unchanged one is reused. The
 build happens at first use (never at import: the CPU tests import every
@@ -28,8 +43,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 LAUNCHES = {
@@ -37,6 +51,8 @@ LAUNCHES = {
     "flash_attention": 0,  # K2, ops/flash_attention.py
     "decode_attention": 0,  # K3, ops/decode_attention.py (bf16 and int8 forms)
     "decode_attention_i4": 0,  # K4, ops/decode_attention.py
+    "beam_attention": 0,  # K5, ops/beam_attention.py (bf16 and int8 forms)
+    "beam_cross_attention": 0,  # K6, ops/beam_attention.py (bf16, int8 and int4 forms)
 }
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -46,6 +62,11 @@ _SIGNATURES = {
     "sstw_decode_attention_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "sstw_decode_attention_i8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "sstw_decode_attention_i4": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "sstw_beam_attention_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "sstw_beam_attention_i8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "sstw_beam_cross_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "sstw_beam_cross_attention_i8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "sstw_beam_cross_attention_i4": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
 }
 
 _lock = threading.Lock()
@@ -90,17 +111,31 @@ def build(verbose: bool = False) -> tuple[Path, float, str]:
         return out, 0.0, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), *[str(s) for s in _sources() if s.suffix == ".cu"]]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n{proc.stdout}{proc.stderr}"
-        )
+    objs, procs = [], []
+    for src in (s for s in _sources() if s.suffix == ".cu"):
+        obj = tmp.with_name(f"{tmp.name}.{src.stem}.o")
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+             "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    log = "".join(p.communicate()[0] for p in procs)
+    try:
+        failed = [p.args[-1] for p in procs if p.returncode != 0]
+        if not failed:
+            link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                                  capture_output=True, text=True)
+            log += link.stdout + link.stderr
+            failed = ["(link)"] if link.returncode != 0 else []
+        if failed:
+            raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n{log}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, out)
-    return out, seconds, proc.stdout + proc.stderr
+    return out, time.perf_counter() - t0, log
 
 
 def lib() -> ctypes.CDLL:

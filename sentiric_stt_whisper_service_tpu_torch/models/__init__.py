@@ -1,3 +1,4 @@
+from .beam import decode_window_beam, topk_small  # noqa: F401
 from .sampling import (  # noqa: F401
     DecodeResult,
     TokenIds,
@@ -11,6 +12,7 @@ from .whisper import (  # noqa: F401
     config_for,
     decoder_apply,
     decoder_step,
+    decoder_step_beam,
     encode_xa_kv,
     encode_xa_kv_q,
     encoder_apply,

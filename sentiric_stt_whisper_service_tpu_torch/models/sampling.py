@@ -228,6 +228,12 @@ def decode_window(
     return _decode_result(state, no_speech_probs, sample_begin, ids)
 
 
+def self_cache_len(ctx: int, max_len: int) -> int:
+    """Rows of the self-attention KV slab: right-sized to ``max_len`` (every
+    step reads all of it) at the JAX package's 32-row granularity."""
+    return min(ctx, -(-max_len // 32) * 32)
+
+
 def _decode_setup(
     cfg, model, xa_kv, tokens_init, sample_begin, sot_index, ids, max_len,
     prefill_len, self_dtype,
@@ -236,10 +242,7 @@ def _decode_setup(
     B = tokens_init.shape[0]
     ctx = cfg.n_text_ctx
     dev = tokens_init.device
-    # Right-size the self-attention KV slab (every step reads all of it);
-    # the 32-row granularity matches the JAX package's slab length.
-    cache_len = min(ctx, -(-max_len // 32) * 32)
-    kv = init_kv_cache(cfg, B, cache_len, dtype=self_dtype, device=dev)
+    kv = init_kv_cache(cfg, B, self_cache_len(ctx, max_len), dtype=self_dtype, device=dev)
     tokens = tokens_init.to(torch.int64).clone()
 
     prefill_logits, kv = decoder_apply(cfg, model, tokens[:, :prefill_len], 0, kv, xa_kv)
@@ -260,21 +263,30 @@ def _decode_setup(
     return state, no_speech_probs
 
 
-def _decode_step_fn(cfg, model, xa_kv, ids, suppress_mask, sample_begin, use_timestamps):
-    """The greedy step over a ``_DecodeState``, which it advances in place."""
-    dev = suppress_mask.device
-    vocab_idx = torch.arange(cfg.n_vocab, device=dev)
+def logit_processor(n_vocab, ids, suppress_mask, sample_begin, use_timestamps):
+    """``process(logits [R, V], tokens [R, ctx], pos)``: the static
+    suppression row (with blank and EOT barred as the first sample), then
+    the timestamp rules. Shared by greedy and beam decoding."""
+    vocab_idx = torch.arange(n_vocab, device=suppress_mask.device)
     start_row = torch.where(
         (vocab_idx == ids.blank) | (vocab_idx == ids.eot), NEG_INF, 0.0
     ).to(torch.float32)
-    at_start_mask = suppress_mask + start_row  # blank + EOT barred as the first sample
+    at_start_mask = suppress_mask + start_row
 
-    def process_logits(logits, tokens, pos):
+    def process(logits, tokens, pos):
         row = at_start_mask if pos == sample_begin else suppress_mask
         logits = logits + row[None, :]
         if use_timestamps:
             logits = apply_timestamp_rules(logits, tokens, pos, sample_begin, ids)
         return logits
+
+    return process
+
+
+def _decode_step_fn(cfg, model, xa_kv, ids, suppress_mask, sample_begin, use_timestamps):
+    """The greedy step over a ``_DecodeState``, which it advances in place."""
+    process_logits = logit_processor(cfg.n_vocab, ids, suppress_mask, sample_begin,
+                                     use_timestamps)
 
     def step(st: _DecodeState) -> None:
         logits = process_logits(st.last_logits, st.tokens, st.pos)

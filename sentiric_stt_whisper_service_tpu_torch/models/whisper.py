@@ -15,9 +15,11 @@ package returns a new one); the head-paired cache layout of the JAX package
 is a TPU lane workaround and is not ported.
 
 Kernels on this path, on CUDA tensors: the encoder's unmasked attention
-(``ops/flash_attention``, K2) and the decode step's cross read
+(``ops/flash_attention``, K2), the greedy decode step's cross read
 (``ops/decode_attention``: K4 on the int4 carrier, K3 on int8 or bf16
-slabs). The convolutions and dense products are plain ``conv1d`` and
+slabs) and the beam decode step's self and cross reads
+(``ops/beam_attention``: K5 over the ancestry-masked slot caches, K6 over
+the shared cross slab in its three forms). The convolutions and dense products are plain ``conv1d`` and
 ``matmul``, as the JAX package leaves them to XLA. With an fp32 model on
 CUDA set ``torch.backends.cudnn.allow_tf32 = False`` (cuDNN's default is
 True) and keep ``torch.backends.cuda.matmul.allow_tf32`` False (the
@@ -40,6 +42,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.beam_attention import (
+    beam_attention,
+    beam_cross_attention,
+    beam_cross_attention_i4,
+    beam_cross_attention_reference,
+)
 from ..ops.decode_attention import decode_attention, decode_attention_i4
 from ..ops.flash_attention import flash_attention
 from ..ops.quant import unpack_xa_kv
@@ -465,29 +473,19 @@ def precompute_xa_kv(
     return out
 
 
-def _attend_kf(q, k, v):
-    """Attention over KF-layout slabs. q [B,H,T,hd] (pre-scaled);
-    k,v [B,H,hd,F]. fp32 softmax. Returns [B,H,T,hd]."""
-    w = torch.softmax(torch.matmul(q.float(), k.float()), dim=-1)  # [B,H,T,F]
-    out = torch.matmul(w.to(v.dtype).float(), v.float().transpose(-1, -2))
-    return out.to(v.dtype)
-
-
 def _attend_xa(q, xa: dict, scale):
     """Cross-attention against one layer's audio K/V (plain, any T), int8-
     and int4-aware. q [B,H,T,hd]; xa holds {"k","v"} [B,H,hd,F], or int8
     {"k_q","v_q"} / packed {"k_p","v_p"} with "k_scale","v_scale" [B,H,F].
     ``k_scale`` multiplies the scores after the q·k product, ``v_scale``
-    the softmax weights. Returns [B,H,T,hd]."""
+    the softmax weights (``ops/beam_attention.beam_cross_attention_reference``).
+    Returns [B,H,T,hd]."""
     xa = unpack_xa_kv(xa)
+    s2 = scale * scale
     if "k_q" not in xa:
-        return _attend_kf(q * (scale * scale), xa["k"], xa["v"])
-    scores = torch.matmul(q.float(), xa["k_q"].float())  # [B,H,T,F]
-    scores = scores * (xa["k_scale"] * (scale * scale))[:, :, None, :]
-    w = torch.softmax(scores, dim=-1)
-    wv = (w * xa["v_scale"][:, :, None, :]).to(q.dtype)
-    out = torch.matmul(wv.float(), xa["v_q"].float().transpose(-1, -2))
-    return out.to(q.dtype)
+        return beam_cross_attention_reference(q, xa["k"], xa["v"], scale=s2)
+    return beam_cross_attention_reference(q, xa["k_q"], xa["v_q"], xa["k_scale"],
+                                          xa["v_scale"], scale=s2)
 
 
 def _attend_xa_step(q1, xa: dict, scale):
@@ -500,6 +498,20 @@ def _attend_xa_step(q1, xa: dict, scale):
     if "k_q" in xa:
         return decode_attention(q1, xa["k_q"], xa["v_q"], xa["k_scale"], xa["v_scale"], scale=s2)
     return decode_attention(q1, xa["k"], xa["v"], scale=s2)
+
+
+def _attend_xa_beam(q, xa: dict, scale):
+    """Beam cross-attention, the K beams of an item against its shared
+    slab: q [B,H,K,hd] → [B,H,K,hd]. K6 in the slab's form (packed int4,
+    int8 or bf16); each wrapper takes its plain version on a CPU tensor."""
+    s2 = scale * scale
+    if "k_p" in xa:
+        return beam_cross_attention_i4(q, xa["k_p"], xa["v_p"], xa["k_scale"], xa["v_scale"],
+                                       scale=s2)
+    if "k_q" in xa:
+        return beam_cross_attention(q, xa["k_q"], xa["v_q"], xa["k_scale"], xa["v_scale"],
+                                    scale=s2)
+    return beam_cross_attention(q, xa["k"], xa["v"], scale=s2)
 
 
 def _self_qkv(y, attn: Attention):
@@ -594,6 +606,54 @@ def decoder_step(
         q = dense(y, layer.cross_attn.q).reshape(S, h, hd)
         ca = _attend_xa_step(q, _xa_layer(xa_kv, li), scale)
         x = x + dense(ca.reshape(S, 1, d).to(x.dtype), layer.cross_attn.o)
+
+        x = x + mlp(layer_norm(x, layer.mlp_ln), layer.mlp_1, layer.mlp_2)
+    x = layer_norm(x, dec.ln)
+    return tied_logits(x, dec)[:, 0], kv_cache
+
+
+def decoder_step_beam(
+    cfg: WhisperConfig,
+    model: Whisper,
+    tokens: torch.Tensor,  # [B*K] int: one new token per beam
+    pos: int,  # shared position (beams decode in lockstep)
+    kv_cache: dict,  # [L, B*K, H, C, hd] slot caches, slot s of item b at row b*K+s
+    xa_kv: dict,  # [L, B, H, hd, 1500] KF, shared by the K beams of an item
+    anc: torch.Tensor,  # [B, K, K, C] bool: beam kd reads position c from slot ks
+    beam_size: int,
+    c_valid: int = 0,  # read self-cache positions [0, c_valid) only; 0 = all
+):
+    """One beam-search decode step with no reordering of the KV cache: each
+    beam appends its K/V row into its own slot at ``pos`` (in place), and
+    parent adoption lives in the ancestry mask. Self-attention reads every
+    slot of the item through the mask (K5); cross-attention serves the K
+    beams of an item from one read of the untiled slab (K6). Exact for any
+    ``c_valid`` > ``pos`` (later rows are masked). Returns (logits
+    [B*K, V] fp32, kv_cache)."""
+    dec = model.decoder
+    S = tokens.shape[0]
+    K = beam_size
+    B = S // K
+    h = cfg.n_text_head
+    d = cfg.n_text_state
+    hd = d // h
+    scale = hd**-0.25
+
+    x = (embed_tokens(dec, tokens) + dec.pos_emb[pos])[:, None, :].to(cfg.dtype)  # [S,1,d]
+    for li, layer in enumerate(dec.blocks):
+        y = layer_norm(x, layer.attn_ln)
+        qp, kp, vp = _self_qkv(y, layer.attn)
+        k_cache, v_cache = kv_cache["k"][li], kv_cache["v"][li]
+        k_cache[:, :, pos] = kp.reshape(S, h, hd).to(k_cache.dtype)
+        v_cache[:, :, pos] = vp.reshape(S, h, hd).to(v_cache.dtype)
+        sa = beam_attention(qp.reshape(S, h, hd).contiguous(), k_cache, v_cache, anc, K,
+                            scale=scale * scale, c_valid=c_valid)
+        x = x + dense(sa.reshape(S, 1, d).to(x.dtype), layer.attn.o)
+
+        y = layer_norm(x, layer.cross_attn_ln)
+        q = dense(y, layer.cross_attn.q).reshape(B, K, h, hd).transpose(1, 2).contiguous()
+        ca = _attend_xa_beam(q, _xa_layer(xa_kv, li), scale)  # [B,H,K,hd]
+        x = x + dense(ca.transpose(1, 2).reshape(S, 1, d).to(x.dtype), layer.cross_attn.o)
 
         x = x + mlp(layer_norm(x, layer.mlp_ln), layer.mlp_1, layer.mlp_2)
     x = layer_norm(x, dec.ln)

@@ -1,0 +1,165 @@
+"""Beam-search attention (ops/beam_attention: K5's and K6's plain versions on
+CPU) against the JAX package: its Pallas ``beam_attention`` and
+``beam_cross_attention`` in interpret mode, as tests/test_beam_attention.py
+runs them, its ``beam_attention_reference``, and ``models/whisper._attend_xa``
+(the function its beam step calls for the cross read) on the packed int4
+carrier.
+
+Tolerances: atol 2e-5 where both sides compute in fp32, as
+tests/test_torch_decode_attention.py (the same sums in another order). The
+Pallas kernels round their matrix-unit operands to bf16 for bf16 inputs and
+for int8 slabs (queries and softmax weights), so against those the JAX
+package's own bf16 tolerance applies (2e-2, tests/test_beam_attention.py)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sentiric_stt_whisper_service_tpu.models.whisper import _attend_xa as ref_attend_xa
+from sentiric_stt_whisper_service_tpu.ops import quant as ref_quant
+from sentiric_stt_whisper_service_tpu.ops.beam_attention import (
+    beam_attention as ref_beam,
+)
+from sentiric_stt_whisper_service_tpu.ops.beam_attention import (
+    beam_attention_reference as ref_beam_plain,
+)
+from sentiric_stt_whisper_service_tpu.ops.beam_attention import (
+    beam_cross_attention as ref_cross,
+)
+from sentiric_stt_whisper_service_tpu_torch.ops.beam_attention import (
+    beam_attention,
+    beam_cross_attention,
+    beam_cross_attention_i4,
+)
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
+
+B, K, H, HD, C, F = 2, 3, 4, 64, 128, 256
+SCALE = HD**-0.5
+FP32, BF16 = 2e-5, 2e-2
+
+
+def t(a):
+    return torch.tensor(np.asarray(a))
+
+
+def to_dtype(x, name):
+    return x if name == "fp32" else x.to(torch.bfloat16)
+
+
+def self_case(seed, C=C, pos=C - 5):
+    """Slot caches and a valid ancestry: one source slot per (item, beam,
+    position) before ``pos``, none after."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B * K, H, HD)).astype(np.float32)
+    k = (rng.standard_normal((B * K, H, C, HD)) * 0.3).astype(np.float32)
+    v = (rng.standard_normal((B * K, H, C, HD)) * 0.3).astype(np.float32)
+    src = rng.integers(0, K, size=(B, K, C))
+    anc = np.zeros((B, K, K, C), bool)
+    b, kd, c = np.meshgrid(np.arange(B), np.arange(K), np.arange(C), indexing="ij")
+    anc[b, kd, src, c] = True
+    anc[:, :, :, pos:] = False
+    return q, k, v, anc
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_self_plain_matches_pallas(dtype):
+    q, k, v, anc = self_case(0)
+    qt, kt, vt = (to_dtype(torch.from_numpy(x), dtype) for x in (q, k, v))
+    got = beam_attention(qt, kt, vt, torch.from_numpy(anc), K, scale=SCALE)
+    assert got.dtype == qt.dtype and got.shape == (B * K, H, HD)
+    jd = jnp.float32 if dtype == "fp32" else jnp.bfloat16
+    jq, jk, jv = (jnp.asarray(x, jd) for x in (q, k, v))
+    want = ref_beam(jq, jk, jv, jnp.asarray(anc), beam_size=K, scale=SCALE, interpret=True)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               atol=FP32 if dtype == "fp32" else BF16)
+    # the JAX package's plain version computes as this one does (fp32, one
+    # rounding to the output dtype)
+    plain = ref_beam_plain(jq, jk, jv, jnp.asarray(anc), K, scale=SCALE)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(plain, np.float32),
+                               atol=FP32, rtol=0 if dtype == "fp32" else 2**-8)
+
+
+def test_self_int8_with_scales():
+    q, k, v, anc = self_case(1)
+    k_q, k_s = ref_quant.quantize_weight(jnp.asarray(k), axis=-1)  # per row
+    v_q, v_s = ref_quant.quantize_weight(jnp.asarray(v), axis=-1)
+    got = beam_attention(torch.from_numpy(q), t(k_q), t(v_q), torch.from_numpy(anc), K,
+                         scale=SCALE, k_scale=t(k_s), v_scale=t(v_s))
+    # exact per-row dequantization: the plain version on the dequantized slab
+    deq = ref_beam_plain(jnp.asarray(q), k_q.astype(jnp.float32) * k_s[..., None],
+                         v_q.astype(jnp.float32) * v_s[..., None], jnp.asarray(anc), K,
+                         scale=SCALE)
+    np.testing.assert_allclose(got.numpy(), np.asarray(deq), atol=FP32)
+    pallas = ref_beam(jnp.asarray(q), k_q, v_q, jnp.asarray(anc), beam_size=K, scale=SCALE,
+                      interpret=True, k_scale=k_s, v_scale=v_s)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), atol=BF16)
+
+
+def test_ancestry_selects_the_right_slot():
+    """Distinct constant values per slot: each beam's output is the value of
+    the one slot its ancestry points at."""
+    k_, C_ = 2, 8
+    q = torch.ones(k_, 1, HD)
+    k = torch.zeros(k_, 1, C_, HD)
+    v = torch.stack([torch.full((1, C_, HD), float(s + 1)) for s in range(k_)])
+    anc = torch.zeros(1, k_, k_, C_, dtype=torch.bool)
+    anc[0, 0, 1, :4] = True  # beam 0 reads slot 1, beam 1 reads slot 0
+    anc[0, 1, 0, :4] = True
+    out = beam_attention(q, k, v, anc, k_, scale=1.0)
+    np.testing.assert_allclose(out[0].numpy(), 2.0, atol=1e-6)
+    np.testing.assert_allclose(out[1].numpy(), 1.0, atol=1e-6)
+
+
+def test_c_valid_reads_equal_full_reads():
+    q, k, v, anc = self_case(7, C=256, pos=100)
+    args = [torch.from_numpy(x) for x in (q, k, v, anc)]
+    full = beam_attention(*args, K, scale=SCALE)
+    for c_valid in (101, 128, 200):
+        cut = beam_attention(*args, K, scale=SCALE, c_valid=c_valid)
+        np.testing.assert_allclose(cut.numpy(), full.numpy(), atol=1e-6)
+    pallas = ref_beam(*(jnp.asarray(x) for x in (q, k, v, anc)), beam_size=K, scale=SCALE,
+                      c_valid=128, interpret=True)
+    np.testing.assert_allclose(full.numpy(), np.asarray(pallas), atol=FP32)
+
+
+def cross_case(seed):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, H, K, HD)).astype(np.float32)
+    k = rng.standard_normal((B, H, HD, F)).astype(np.float32)
+    v = rng.standard_normal((B, H, HD, F)).astype(np.float32)
+    return q, k, v
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_cross_plain_matches_pallas(dtype):
+    q, k, v = cross_case(2)
+    qt, kt, vt = (to_dtype(torch.from_numpy(x), dtype) for x in (q, k, v))
+    got = beam_cross_attention(qt, kt, vt, scale=SCALE)
+    assert got.dtype == qt.dtype and got.shape == (B, H, K, HD)
+    jd = jnp.float32 if dtype == "fp32" else jnp.bfloat16
+    want = ref_cross(*(jnp.asarray(x, jd) for x in (q, k, v)), scale=SCALE, interpret=True)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               atol=FP32 if dtype == "fp32" else BF16)
+
+
+def test_cross_int8_matches_attend_xa_and_pallas():
+    q, k, v = cross_case(3)
+    k_q, k_s = ref_quant.quantize_weight(jnp.asarray(k), axis=-2)  # per position
+    v_q, v_s = ref_quant.quantize_weight(jnp.asarray(v), axis=-2)
+    got = beam_cross_attention(torch.from_numpy(q), t(k_q), t(v_q), t(k_s), t(v_s),
+                               scale=SCALE)
+    want, _ = ref_attend_xa(jnp.asarray(q), {"k_q": k_q, "v_q": v_q, "k_scale": k_s,
+                                             "v_scale": v_s}, HD**-0.25)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=FP32)
+    pallas = ref_cross(jnp.asarray(q), k_q, v_q, k_s, v_s, scale=SCALE, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), atol=BF16)
+
+
+def test_cross_int4_carrier_matches_attend_xa():
+    q, k, v = cross_case(4)
+    packed = ref_quant.quantize_xa_kv({"k": jnp.asarray(k), "v": jnp.asarray(v)}, bits=4)
+    got = beam_cross_attention_i4(torch.from_numpy(q), t(packed["k_p"]), t(packed["v_p"]),
+                                  t(packed["k_scale"]), t(packed["v_scale"]), scale=SCALE)
+    want, _ = ref_attend_xa(jnp.asarray(q), packed, HD**-0.25)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=FP32)

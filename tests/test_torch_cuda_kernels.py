@@ -7,16 +7,19 @@ without the suite's conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
-Small shapes with the slice's widths (hd = 64, 20 heads, ragged lengths);
-``chip_smoke.py`` checks the full slice shapes. Tolerances: the JAX
-package's 3e-4 for the fp32 log-mel; for bf16 outputs, two bf16 steps at
-the largest plain output (fp32 sums in another order, then bf16 rounding).
+Small shapes with the slices' widths (hd = 64, 20 heads, 5 beams, ragged
+lengths and read bounds); ``chip_smoke.py`` checks the full slice shapes.
+Tolerances: the JAX package's 3e-4 for the fp32 log-mel; for bf16 outputs,
+two bf16 steps at the largest plain output (fp32 sums in another order, then
+bf16 rounding), four for K6, whose plain version also rounds its softmax
+weights to bf16.
 """
 
 import pytest
 import torch
 
 from sentiric_stt_whisper_service_tpu_torch import kernels
+from sentiric_stt_whisper_service_tpu_torch.ops import beam_attention as ba
 from sentiric_stt_whisper_service_tpu_torch.ops import decode_attention as da
 from sentiric_stt_whisper_service_tpu_torch.ops import fused_mel, mel, quant
 from sentiric_stt_whisper_service_tpu_torch.ops.flash_attention import (
@@ -35,10 +38,10 @@ def dev():
     return torch.device("cuda")
 
 
-def _close_bf16(got, want):
+def _close_bf16(got, want, steps=2):
     assert got.dtype == want.dtype == torch.bfloat16 and got.shape == want.shape
     err = (got.float() - want.float()).abs().max().item()
-    assert err <= 2**-6 * want.float().abs().max().item(), err
+    assert err <= steps * 2**-7 * want.float().abs().max().item(), err
 
 
 @pytest.mark.parametrize("n_samples,n_mels", [(48000, 80), (16123, 128)])
@@ -81,6 +84,61 @@ def test_decode_attention(dev, form):
     _close_bf16(got, want)
 
 
+def _ancestry(B, K, C, pos, g):
+    """A random valid ancestry: one source slot per (item, beam, position)
+    before ``pos``, none after."""
+    src = torch.randint(0, K, (B, K, C), generator=g)
+    anc = torch.nn.functional.one_hot(src, K).permute(0, 1, 3, 2).bool().contiguous()
+    anc[..., pos:] = False
+    return anc
+
+
+@pytest.mark.parametrize("form", ["bf16", "int8"])
+@pytest.mark.parametrize("C,c_valid,pos", [(160, 0, 150), (160, 128, 100), (200, 77, 77)])
+def test_beam_attention(dev, form, C, c_valid, pos):
+    B, K, H, HD = 2, 5, 20, 64
+    g = torch.Generator().manual_seed(C + c_valid)
+    q = torch.randn(B * K, H, HD, generator=g).bfloat16().to(dev)
+    k, v = (torch.randn(B * K, H, C, HD, generator=g) * 0.3 for _ in range(2))
+    anc = _ancestry(B, K, C, pos, g).to(dev)
+    scale = HD**-0.5
+    kw = dict(scale=scale, c_valid=c_valid)
+    if form == "int8":
+        (k8, ks), (v8, vs) = (quant.quantize_weight(x.to(dev), axis=-1) for x in (k, v))
+        kw.update(k_scale=ks, v_scale=vs)
+        args = (q, k8, v8, anc, K)
+    else:
+        args = (q, k.bfloat16().to(dev), v.bfloat16().to(dev), anc, K)
+    before = kernels.LAUNCHES["beam_attention"]
+    got = ba.beam_attention(*args, **kw)
+    assert kernels.LAUNCHES["beam_attention"] == before + 1
+    _close_bf16(got, ba.beam_attention_reference(*args, **kw))
+
+
+@pytest.mark.parametrize("form", ["bf16", "int8", "int4"])
+def test_beam_cross_attention(dev, form):
+    B, H, K, HD, F = 2, 20, 5, 64, 1500
+    q = torch.randn(B, H, K, HD, device=dev).bfloat16()
+    k, v = torch.randn(2, B, H, HD, F, device=dev).unbind(0)
+    scale = HD**-0.5
+    if form == "int4":
+        (kp, ks), (vp, vs) = quant._quantize_kv(k, 4), quant._quantize_kv(v, 4)
+        got = ba.beam_cross_attention_i4(q, kp, vp, ks, vs, scale=scale)
+        want = ba.beam_cross_attention_reference(
+            q, quant.unpack_nibbles_i8(kp), quant.unpack_nibbles_i8(vp), ks, vs, scale=scale)
+    elif form == "int8":
+        (k8, ks), (v8, vs) = quant.quantize_weight(k), quant.quantize_weight(v)
+        got = ba.beam_cross_attention(q, k8, v8, ks, vs, scale=scale)
+        want = ba.beam_cross_attention_reference(q, k8, v8, ks, vs, scale=scale)
+    else:
+        kb, vb = k.bfloat16(), v.bfloat16()
+        got = ba.beam_cross_attention(q, kb, vb, scale=scale)
+        want = ba.beam_cross_attention_reference(q, kb, vb, scale=scale)
+    # the plain version rounds its softmax weights to bf16 (the JAX package's
+    # _attend_xa), the kernel keeps them in fp32: four bf16 steps
+    _close_bf16(got, want, steps=4)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     q = torch.randn(1, 2, 10, 32, device=dev).bfloat16()  # head dim 32
     with pytest.raises(ValueError, match="64"):
@@ -91,3 +149,12 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     q = torch.randn(1, 2, 10, 64, device=dev).bfloat16().transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention(q, q, q)
+    q = torch.randn(1, 20, 9, 64, device=dev).bfloat16()  # 9 beams
+    k = torch.randn(1, 20, 64, 100, device=dev).bfloat16()
+    with pytest.raises(ValueError, match="K = 9"):
+        ba.beam_cross_attention(q, k, k)
+    q1 = torch.randn(9, 20, 64, device=dev).bfloat16()
+    kv = torch.randn(9, 20, 16, 64, device=dev).to(torch.float8_e4m3fn)  # fp8 slot cache
+    anc = torch.ones(1, 9, 9, 16, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="dtype"):
+        ba.beam_attention(q1, kv, kv, anc, 9)

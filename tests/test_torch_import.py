@@ -18,8 +18,10 @@ MODULES = [
     "sentiric_stt_whisper_service_tpu_torch.audio",
     "sentiric_stt_whisper_service_tpu_torch.kernels",
     "sentiric_stt_whisper_service_tpu_torch.models",
+    "sentiric_stt_whisper_service_tpu_torch.models.beam",
     "sentiric_stt_whisper_service_tpu_torch.models.params",
     "sentiric_stt_whisper_service_tpu_torch.ops",
+    "sentiric_stt_whisper_service_tpu_torch.ops.beam_attention",
     "sentiric_stt_whisper_service_tpu_torch.ops.decode_attention",
     "sentiric_stt_whisper_service_tpu_torch.ops.flash_attention",
     "sentiric_stt_whisper_service_tpu_torch.ops.fused_mel",
@@ -51,9 +53,12 @@ def test_import_leaves_out_jax_and_the_reference():
                "sentiric_stt_whisper_service_tpu.", "import tiktoken"],
 )
 def test_port_sources_avoid(needle):
+    # chip_smoke.py times PyTorch's attention call beside the kernels as a
+    # yardstick (library_ms); the package itself never calls it.
+    smoke = [] if needle == "scaled_dot_product_attention" else [ROOT / "chip_smoke.py"]
     hits = [
         str(p.relative_to(ROOT))
-        for p in sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+        for p in sorted(PORT.rglob("*.py")) + smoke
         if needle in p.read_text()
     ]
     assert not hits, f"{needle!r} in {hits}"
@@ -62,6 +67,11 @@ def test_port_sources_avoid(needle):
 def test_cpu_tensors_take_the_plain_versions():
     from sentiric_stt_whisper_service_tpu_torch import kernels
     from sentiric_stt_whisper_service_tpu_torch.ops import compute_log_mel
+    from sentiric_stt_whisper_service_tpu_torch.ops.beam_attention import (
+        beam_attention,
+        beam_cross_attention,
+        beam_cross_attention_i4,
+    )
     from sentiric_stt_whisper_service_tpu_torch.ops.decode_attention import (
         decode_attention,
         decode_attention_i4,
@@ -79,10 +89,20 @@ def test_cpu_tensors_take_the_plain_versions():
     s = torch.ones(1, 2, 16)
     kp = torch.zeros(1, 2, 64, 8, dtype=torch.int8)
     decode_attention_i4(q1, kp, kp, s, s)
+    qb = torch.randn(2, 2, 64, generator=g)
+    kv = torch.randn(2, 2, 16, 64, generator=g)
+    beam_attention(qb, kv, kv, torch.ones(1, 2, 2, 16, dtype=torch.bool), 2)
+    qc = torch.randn(1, 2, 2, 64, generator=g)
+    beam_cross_attention(qc, k, k)
+    beam_cross_attention_i4(qc, kp, kp, s, s)
     assert kernels.LAUNCHES == before  # nothing launched, nothing built
 
 
 def test_other_devices_raise_instead_of_falling_back():
+    from sentiric_stt_whisper_service_tpu_torch.ops.beam_attention import (
+        beam_attention,
+        beam_cross_attention,
+    )
     from sentiric_stt_whisper_service_tpu_torch.ops.decode_attention import decode_attention
     from sentiric_stt_whisper_service_tpu_torch.ops.flash_attention import flash_attention
 
@@ -93,6 +113,12 @@ def test_other_devices_raise_instead_of_falling_back():
     k = torch.empty(1, 2, 64, 16, device="meta", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="CUDA"):
         decode_attention(q1, k, k)
+    kv = torch.empty(2, 2, 16, 64, device="meta", dtype=torch.bfloat16)
+    anc = torch.empty(1, 2, 2, 16, device="meta", dtype=torch.bool)
+    with pytest.raises(ValueError, match="CUDA"):
+        beam_attention(q1[:1].expand(2, 2, 64).contiguous(), kv, kv, anc, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        beam_cross_attention(q, k, k)
 
 
 def test_library_name_follows_the_sources():
@@ -102,4 +128,4 @@ def test_library_name_follows_the_sources():
     assert path.parent == kernels.BUILD_DIR
     assert path == kernels.library_path()  # deterministic
     assert {p.name for p in kernels.CSRC.glob("*.cu")} == {
-        "mel.cu", "flash_attention.cu", "decode_attention.cu"}
+        "mel.cu", "flash_attention.cu", "decode_attention.cu", "beam_attention.cu"}
