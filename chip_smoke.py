@@ -18,10 +18,12 @@ JAX package) and fails with a non-zero exit on the first phase that fails:
    self-attention in its bf16 and int8 forms at two read bounds, K6 beam
    cross-attention in its bf16, int8 and int4 forms) against its plain
    PyTorch version on the same inputs, with the stated tolerance; each one's
-   median time beside the plain version's, the time of one PyTorch call that
-   computes the same function where there is one, and the bound: the least
-   time the card could take, the larger of the bytes over 3.35 TB/s and the
-   operations over the peak rate for the inputs' type;
+   median time per call beside the plain version's, the time of one PyTorch
+   call that computes the same function where there is one, and the bound:
+   the least time the card could take, the larger of the bytes over 3.35 TB/s
+   and the operations over the peak rate for the inputs' type; beside them
+   the kernel's and the library call's device time (20 calls replayed in a
+   CUDA graph, so the host's dispatch is left out);
 4. the greedy slice: large-v3 at full width with random weights from a fixed
    seed, int8 weights + fused qkv, four synthetic 16 kHz WAV requests written
    and parsed by the port, then pad_or_trim → compute_log_mel →
@@ -41,8 +43,8 @@ JAX package) and fails with a non-zero exit on the first phase that fails:
 
 Each path (greedy int4, greedy int8, greedy bf16, beam 5) has its own launch
 counts, set to 0 just before its run and read just after it; each run must
-launch every kernel of its path. ``--profile`` replaces phases 3–5 with a
-breakdown of both slices: stage times, and kernel time, launches and the
+launch every kernel of its path. ``--profile`` runs phase 3, then replaces
+phases 4–5 with a breakdown of both slices: stage times, and kernel time, launches and the
 device's idle share per decode step under ``torch.profiler``. The last lines
 are the card, one JSON object with each kernel's route, source, launch count
 on the path its row times (and on every path), error, times and bound, then
@@ -51,6 +53,7 @@ on the path its row times (and on every path), error, times and bound, then
 
 from __future__ import annotations
 
+import functools
 import io
 import json
 import statistics
@@ -92,10 +95,15 @@ SOURCES = {
                             "greedy_int4"),
     "beam_attention": ("csrc/beam_attention.cu",
                        "sentiric_stt_whisper_service_tpu/ops/beam_attention.py:214", "beam5"),
-    "beam_cross_attention": ("csrc/beam_attention.cu",
+    "beam_cross_attention": ("csrc/beam_cross_attention.cu",
                              "sentiric_stt_whisper_service_tpu/ops/beam_attention.py:333",
                              "beam5"),
 }
+
+# The port's kernel functions (every __global__ of csrc/), matched by name in
+# the --profile breakdown.
+PROFILE_KERNELS = ("log_mel_kernel", "flash_attention_kernel", "slab_attention_kernel",
+                   "beam_attention_kernel", "beam_cross_attention_kernel")
 
 
 class SmokeFailure(Exception):
@@ -115,8 +123,48 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+@functools.lru_cache(maxsize=1)
+def warmup_stream():
+    """The one side stream of every capture's warm-up: PyTorch keeps a
+    cuBLAS workspace for each stream it sees."""
+    import torch
+
+    return torch.cuda.Stream()
+
+
+def graph_ms(fn, calls: int = 20, reps: int = 5) -> float:
+    """Device milliseconds per call: ``calls`` calls captured in one CUDA
+    graph, replayed ``reps`` times between CUDA events (median), so no host
+    dispatch is in the time. The inputs stay in L2 between calls."""
+    import torch
+
+    side = warmup_stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture, as torch.cuda.graphs asks
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    del graph
+    return statistics.median(times)
+
+
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Median milliseconds per call, CUDA events around each call."""
+    """Median milliseconds per call, CUDA events around each call: the
+    device time plus whatever of the host's dispatch the device waits for."""
     import torch
 
     for _ in range(warmup):
@@ -192,7 +240,11 @@ def check_kernels(torch, np) -> list[dict]:
         ``work`` is (bytes moved, operations, input type) for the bound;
         ``library_fn`` one PyTorch call computing the same function. A
         ``library_note`` marks a yardstick on other inputs: its time is
-        printed and kept out of the JSON line."""
+        printed and kept out of the JSON line. ``ms``, ``plain_ms`` and
+        ``library_ms`` are times per call (``time_ms``: host dispatch
+        included wherever the device waits for it); ``device_ms`` and
+        ``library_device_ms`` are device times from CUDA-graph replay
+        (``graph_ms``)."""
         got, want = kernel_fn(), plain_fn()
         torch.cuda.synchronize()
         require(got.shape == want.shape and got.dtype == want.dtype,
@@ -202,18 +254,24 @@ def check_kernels(torch, np) -> list[dict]:
         err = (got.float() - want.float()).abs().max().item()
         peak = want.float().abs().max().item()
         tol = tol(peak) if callable(tol) else tol
-        ms, plain_ms = time_ms(kernel_fn), time_ms(plain_fn)
-        library_ms = time_ms(library_fn) if library_fn is not None else None
+        ms, plain_ms, device_ms = time_ms(kernel_fn), time_ms(plain_fn), graph_ms(kernel_fn)
+        library_ms = library_device_ms = None
+        if library_fn is not None:
+            library_ms, library_device_ms = time_ms(library_fn), graph_ms(library_fn)
         bound_ms, bound_by = bound(*work)
         ok = err <= tol
-        lib_txt = f"{library_ms:.4f} ms{library_note}" if library_ms is not None else "none"
+        lib_txt = (f"{library_ms:.4f} ms (device {library_device_ms:.4f}){library_note}"
+                   if library_fn is not None else "none")
         print(f"  {name:<38} max_abs_err {err:.3e} (tol {tol:.2e}: {why}; max |plain| "
-              f"{peak:.3g})  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  library {lib_txt}  "
-              f"bound {bound_ms:.4f} ms ({bound_by}: {work[0] / 1e6:.2f} MB, "
-              f"{work[1] / 1e9:.3f} G{work[2]} ops)  {'OK' if ok else 'FAIL'}")
+              f"{peak:.3g})  kernel {ms:.4f} ms (device {device_ms:.4f})  plain {plain_ms:.4f} ms"
+              f"  library {lib_txt}  bound {bound_ms:.4f} ms ({bound_by}: "
+              f"{work[0] / 1e6:.2f} MB, {work[1] / 1e9:.3f} G{work[2]} ops)  "
+              f"{'OK' if ok else 'FAIL'}")
         require(ok, f"{name}: max_abs_err {err:.3e} > tol {tol:.2e}")
+        mine = not library_note  # a yardstick on other inputs stays out of the JSON line
         rows.append(dict(check=name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         library_ms=library_ms if not library_note else None,
+                         library_ms=library_ms if mine else None, device_ms=device_ms,
+                         library_device_ms=library_device_ms if mine else None,
                          bound_ms=bound_ms, bound_by=bound_by, **meta))
 
     # K1: 4 windows of 30 s at large-v3's 128 mels; both sides through the
@@ -602,6 +660,7 @@ def run(torch, np, profile: bool = False) -> int:
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "device_ms": row["device_ms"], "library_device_ms": row["library_device_ms"],
         })
     print(card)
     print(json.dumps({"kernels": kernels_json}))
@@ -664,11 +723,9 @@ def profile_slices(torch, cfg, model, audio, timed, card) -> None:
               f"{(w1 - w0) / steps:.2f} ms, device busy {(b1 - b0) / steps:.3f} ms, "
               f"{(l1 - l0) / steps:.0f} device events [{card}]")
         ranked = sorted(names.items(), key=lambda kv: -kv[1][0])
-        ours = ("log_mel_kernel", "flash_attention_kernel", "slab_attention_kernel",
-                "beam_attention_kernel")
         print(f"    the {long_}-token run's top kernels, then the port's own:")
         for name, (t_us, count) in ranked[:8] + [r for r in ranked[8:] if any(
-                o in r[0] for o in ours)]:
+                o in r[0] for o in PROFILE_KERNELS)]:
             print(f"    {t_us / 1e3:9.2f} ms {count:7d}x {t_us / count:8.2f} us  {name[:90]}")
 
 

@@ -1,13 +1,10 @@
-// K5 / K6: the two attention reads of the beam-search decode step.
+// K5: ancestry-masked beam self-attention, the self read of the beam-search
+// decode step (K6, its cross read, is csrc/beam_cross_attention.cu).
 //
 // K5 replaces the Pallas TPU kernel ops/beam_attention.py:_kernel, launched by
 // beam_attention (pallas_call at ops/beam_attention.py:214): ancestry-masked
-// beam self-attention over per-beam slot caches. K6 replaces
-// ops/beam_attention.py:_cross_kernel, launched by beam_cross_attention
-// (pallas_call at ops/beam_attention.py:333): K beam queries against the
-// shared, untiled cross slab. The plain PyTorch versions are
-// ops/beam_attention.py: beam_attention_reference and
-// beam_cross_attention_reference in this package.
+// beam self-attention over per-beam slot caches. The plain PyTorch version is
+// ops/beam_attention.py:beam_attention_reference in this package.
 //
 // K5 computes, per (item b, head h) and destination beam kd < K:
 //   score[kd, s, c] = (q[b*K+kd] . k[b*K+s, c]) * scale * k_scale[b*K+s, c]
@@ -37,13 +34,6 @@
 // multiple of anything. At B = 4, 20 heads that is 80 blocks on 132 SMs (the
 // same under-fill as K3/K4); splitting slots or positions across blocks is
 // later work.
-//
-// K6 is csrc/slab_attention.cuh's slab_attention_kernel with M = K query rows
-// (the notes on its bound and layout are there): the K beams of an item share
-// every read of the item's cross slab, in bf16, int8 or the packed int4
-// carrier read as it is. It follows the numerics of the JAX package's
-// models/whisper.py:_attend_xa, the function its beam step calls: k_scale on
-// the scores after q.k, fp32 softmax, v_scale on the weights.
 
 #include "slab_attention.cuh"
 
@@ -258,27 +248,4 @@ extern "C" int sstw_beam_attention_i8(const void* q, const void* k, const void* 
                                       void* out, int B, int H, int C, int K, int cv, float scale,
                                       void* stream) {
   return launch_beam<true>(q, k, v, k_scale, v_scale, anc, out, B, H, C, K, cv, scale, stream);
-}
-
-extern "C" int sstw_beam_cross_attention_bf16(const void* q, const void* k, const void* v,
-                                              void* out, int B, int H, int F, int K, float scale,
-                                              void* stream) {
-  return slab::launch<slab::kBf16, KMAX>(q, k, v, nullptr, nullptr, nullptr, out, B, H, F, K,
-                                         scale, stream);
-}
-
-extern "C" int sstw_beam_cross_attention_i8(const void* q, const void* k, const void* v,
-                                            const void* k_scale, const void* v_scale, void* out,
-                                            int B, int H, int F, int K, float scale,
-                                            void* stream) {
-  return slab::launch<slab::kInt8, KMAX>(q, k, v, k_scale, v_scale, nullptr, out, B, H, F, K,
-                                         scale, stream);
-}
-
-extern "C" int sstw_beam_cross_attention_i4(const void* q, const void* k_packed,
-                                            const void* v_packed, const void* k_scale,
-                                            const void* v_scale, void* out, int B, int H, int F,
-                                            int K, float scale, void* stream) {
-  return slab::launch<slab::kInt4, KMAX>(q, k_packed, v_packed, k_scale, v_scale, nullptr, out,
-                                         B, H, F, K, scale, stream);
 }

@@ -1,6 +1,10 @@
 // Attention of M <= 8 query rows over one KF-layout slab [S, H, 64, F] per
-// (item s, head h): the kernel behind K3 / K4 (M = 1, csrc/decode_attention.cu)
-// and K6 (M = beam width, csrc/beam_attention.cu). Three slab forms:
+// (item s, head h): the kernel behind K3 / K4 (M = 1, csrc/decode_attention.cu).
+// Only M = 1 is launched. The row template is kept, because a single-row
+// rewrite of the same loops compiled K3's bf16 form 35 % slower on the H100
+// (PERF.md); the multi-row support can go once an equally fast single-row
+// version lands. K5 and K6 share its block reduction and constants.
+// Three slab forms:
 //   * bf16 slab, optional causal bound pos[s]
 //   * int8 slab with per-position scales
 //   * packed int4 slab with per-position scales: byte j holds position j in

@@ -8,11 +8,13 @@ The kernels, each with the TPU kernel of the JAX package it replaces:
   * K3 ``decode_attention`` and K4 ``decode_attention_i4``
     (``csrc/decode_attention.cu``): ``ops/decode_attention.py:146`` and
     ``:227``;
-  * K5 ``beam_attention`` and K6 ``beam_cross_attention``
-    (``csrc/beam_attention.cu``): ``ops/beam_attention.py:214`` and ``:333``.
+  * K5 ``beam_attention`` (``csrc/beam_attention.cu``):
+    ``ops/beam_attention.py:214``;
+  * K6 ``beam_cross_attention`` (``csrc/beam_cross_attention.cu``, a cluster
+    of four blocks per (item, head)): ``ops/beam_attention.py:333``.
 
-K3, K4 and K6 share one slab-attention template
-(``csrc/slab_attention.cuh``).
+K3 and K4 share one slab-attention template (``csrc/slab_attention.cuh``),
+whose block reduction and constants K5 and K6 use too.
 
 One ``nvcc`` per ``csrc/*.cu``, all started together, compiles each source
 for ``sm_90a``; one more links the objects into one shared library with a

@@ -1,5 +1,6 @@
 """Attention of the beam-search decode step (K5, K6): the wrappers of
-``csrc/beam_attention.cu`` and their plain versions.
+``csrc/beam_attention.cu`` (K5) and ``csrc/beam_cross_attention.cu`` (K6)
+and their plain versions.
 
 K5, ``beam_attention`` (the TPU kernel it replaces: the JAX package's
 ``ops/beam_attention.py:214``, ``beam_attention``). Ancestry-masked beam
@@ -21,9 +22,11 @@ read as it is. Its numerics are those of the JAX package's
 ``models/whisper._attend_xa``, the function that package's beam step calls.
 
 A CPU tensor takes the plain version (after unpacking, for int4). On CUDA the
-kernels take bf16 queries, hd = 64 and at most 8 beams, and return bf16. The
-JAX package's head-paired slot cache is a TPU lane workaround and is not
-ported.
+kernels take bf16 queries, hd = 64 and at most 8 beams, and return bf16. K6
+runs a cluster of four blocks per (item, head), each holding a quarter of the
+slab's d rows and the K x F fp32 scores in shared memory, so its slabs must
+start on 16-byte boundaries (one bulk copy per quarter). The JAX package's
+head-paired slot cache is a TPU lane workaround and is not ported.
 """
 
 from __future__ import annotations
@@ -39,7 +42,9 @@ HEAD_DIM = 64
 MAX_BEAMS = 8
 NEG = -1e30  # the JAX package's mask value
 _WARPS = 8  # csrc/slab_attention.cuh THREADS / 32
-_MAX_SMEM_FLOATS = 200 * 1024 // 4  # csrc/slab_attention.cuh MAX_DYNAMIC_SMEM
+_MAX_SMEM_BYTES = 200 * 1024  # csrc/slab_attention.cuh MAX_DYNAMIC_SMEM
+_MAX_SMEM_FLOATS = _MAX_SMEM_BYTES // 4
+_CLUSTER = 4  # csrc/beam_cross_attention.cu: blocks per (item, head), a d quarter each
 
 
 def read_len(C: int, c_valid: int) -> int:
@@ -149,9 +154,15 @@ def _check_cross(name, q, k, v, F, scales=()):
     if hd != HEAD_DIM or tuple(k.shape[:3]) != (B, H, hd) or v.shape != k.shape:
         raise ValueError(f"{name}: need q [B, H, K, 64] and k, v [B, H, 64, *], got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    if not 1 <= K <= MAX_BEAMS or K * F > _MAX_SMEM_FLOATS:
+    # per block: the K and V quarters of the slab, K fp32 score rows padded to
+    # a multiple of 4, and the two scale rows
+    smem = 2 * (HEAD_DIM // _CLUSTER) * k.shape[-1] * k.element_size() + 4 * (
+        K * -(-F // 4) * 4 + len(scales) * F)
+    if not 1 <= K <= MAX_BEAMS or smem > _MAX_SMEM_BYTES:
         raise ValueError(f"{name}: K = {K} beams over F = {F} positions: need 1 <= K <= "
-                         f"{MAX_BEAMS} and K * F <= {_MAX_SMEM_FLOATS}")
+                         f"{MAX_BEAMS} and {smem} <= {_MAX_SMEM_BYTES} bytes of shared memory")
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError(f"{name}: k and v must start on 16-byte boundaries")
     for s in scales:
         if tuple(s.shape) != (B, H, F):
             raise ValueError(f"{name}: scale shape {tuple(s.shape)} != {(B, H, F)}")

@@ -3,7 +3,8 @@ CPU) against the JAX package: its Pallas ``beam_attention`` and
 ``beam_cross_attention`` in interpret mode, as tests/test_beam_attention.py
 runs them, its ``beam_attention_reference``, and ``models/whisper._attend_xa``
 (the function its beam step calls for the cross read) on the packed int4
-carrier.
+carrier; and K6's own cluster arithmetic (csrc/beam_cross_attention.cu)
+emulated in torch against the same.
 
 Tolerances: atol 2e-5 where both sides compute in fp32, as
 tests/test_torch_decode_attention.py (the same sums in another order). The
@@ -32,6 +33,7 @@ from sentiric_stt_whisper_service_tpu_torch.ops.beam_attention import (
     beam_cross_attention,
     beam_cross_attention_i4,
 )
+from sentiric_stt_whisper_service_tpu_torch.ops.quant import unpack_nibbles_i8
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 
 B, K, H, HD, C, F = 2, 3, 4, 64, 128, 256
@@ -163,3 +165,58 @@ def test_cross_int4_carrier_matches_attend_xa():
                                   t(packed["k_scale"]), t(packed["v_scale"]), scale=SCALE)
     want, _ = ref_attend_xa(jnp.asarray(q), packed, HD**-0.25)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=FP32)
+
+
+LOG2E = 1.4426950408889634
+
+
+def k6_cluster(q, k, v, k_scale, v_scale, scale, blocks=4):
+    """K6's arithmetic in fp32 on an int8 slab, or on the packed int4
+    carrier (``k.shape[-1]`` = F/2, unpacked as the kernel does: byte j's low
+    nibble is position j, its sign-extended high nibble position j + F/2).
+    Block r of ``blocks`` owns a quarter of d and a quarter of the positions:
+    the partial scores over the d quarters are summed in a fixed order and
+    scaled by scale × k_scale; each position quarter takes its row max (log2
+    units) and its sum of exponentials, which the blocks merge into weights
+    (v_scale folded in); each block's output rows come from its own V rows."""
+    F = k_scale.shape[-1]
+    if k.shape[-1] != F:
+        k, v = (torch.cat([((x & 15) ^ 8) - 8, x >> 4], dim=-1) for x in (k, v))
+    q, k, v = q.float(), k.float(), v.float()
+    dq, per = q.shape[-1] // blocks, -(-F // (4 * blocks)) * 4  # quarters of whole float4s
+    d_quarters = [slice(r * dq, (r + 1) * dq) for r in range(blocks)]
+    s = sum(q[..., d] @ k[:, :, d] for d in d_quarters)  # left to right, as the kernel
+    s = s * (k_scale * scale)[:, :, None]
+    mb = [s[..., f:f + per].amax(-1, keepdim=True) * LOG2E for f in range(0, F, per)]
+    e = [torch.exp2(s[..., f:f + per] * LOG2E - m) for f, m in zip(range(0, F, per), mb)]
+    big = torch.stack(mb).amax(0)
+    z = sum(x.sum(-1, keepdim=True) * torch.exp2(m - big) for x, m in zip(e, mb))
+    w = torch.cat([x * (torch.exp2(m - big) / z) for x, m in zip(e, mb)], dim=-1)
+    w = w * v_scale[:, :, None]
+    return torch.cat([w @ v[:, :, d].transpose(-1, -2) for d in d_quarters], dim=-1)
+
+
+@pytest.mark.parametrize("form", ["int8", "int4"])
+@pytest.mark.parametrize("F_", [1500, 22])  # F/2 = 750 and 11: both odd
+def test_k6_cluster_arithmetic_matches_pallas(form, F_):
+    rng = np.random.default_rng(F_)
+    K_ = 5
+    q = rng.standard_normal((B, H, K_, HD)).astype(np.float32)
+    k = rng.standard_normal((B, H, HD, F_)).astype(np.float32)
+    v = rng.standard_normal((B, H, HD, F_)).astype(np.float32)
+    if form == "int8":
+        k_q, k_s = ref_quant.quantize_weight(jnp.asarray(k), axis=-2)
+        v_q, v_s = ref_quant.quantize_weight(jnp.asarray(v), axis=-2)
+        slab = {"k_q": k_q, "v_q": v_q, "k_scale": k_s, "v_scale": v_s}
+        got = k6_cluster(torch.from_numpy(q), t(k_q), t(v_q), t(k_s), t(v_s), SCALE)
+    else:
+        slab = ref_quant.quantize_xa_kv({"k": jnp.asarray(k), "v": jnp.asarray(v)}, bits=4)
+        got = k6_cluster(torch.from_numpy(q), t(slab["k_p"]), t(slab["v_p"]),
+                         t(slab["k_scale"]), t(slab["v_scale"]), SCALE)
+        k_q, v_q = (jnp.asarray(unpack_nibbles_i8(t(slab[n])).numpy()) for n in ("k_p", "v_p"))
+    assert got.shape == (B, H, K_, HD)
+    want, _ = ref_attend_xa(jnp.asarray(q), slab, HD**-0.25)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=FP32)
+    pallas = ref_cross(jnp.asarray(q), k_q, v_q, slab["k_scale"], slab["v_scale"], scale=SCALE,
+                       interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), atol=BF16)

@@ -55,10 +55,16 @@ def test_log_mel(dev, n_samples, n_mels):
     assert (got - want).abs().max().item() <= 3e-4
 
 
-@pytest.mark.parametrize("L", [64, 300, 1500])
-def test_flash_attention(dev, L):
-    q, k, v = ((torch.randn(2, 20, L, 64, device=dev) * s).bfloat16() for s in (0.3, 0.3, 1.0))
-    _close_bf16(flash_attention(q, k, v), attention_reference(q, k, v))
+# ragged lengths around the 128-row query and 64-key tiles, and B * H that
+# is a multiple of nothing
+@pytest.mark.parametrize("B,H,L", [(2, 20, L) for L in (1, 64, 65, 127, 129, 300, 1500)]
+                         + [(1, 13, 1500), (3, 7, 129)])
+def test_flash_attention(dev, B, H, L):
+    q, k, v = ((torch.randn(B, H, L, 64, device=dev) * s).bfloat16() for s in (0.3, 0.3, 1.0))
+    before = kernels.LAUNCHES["flash_attention"]
+    got = flash_attention(q, k, v)
+    assert kernels.LAUNCHES["flash_attention"] == before + 1
+    _close_bf16(got, attention_reference(q, k, v))
 
 
 @pytest.mark.parametrize("form", ["bf16", "causal", "int8", "int4"])
@@ -116,11 +122,16 @@ def test_beam_attention(dev, form, C, c_valid, pos):
 
 
 @pytest.mark.parametrize("form", ["bf16", "int8", "int4"])
-def test_beam_cross_attention(dev, form):
-    B, H, K, HD, F = 2, 20, 5, 64, 1500
-    q = torch.randn(B, H, K, HD, device=dev).bfloat16()
+@pytest.mark.parametrize("K", [1, 5, 8])
+@pytest.mark.parametrize("F,q_scale", [(1500, 1.0), (22, 1.0), (1500, 30.0)])
+def test_beam_cross_attention(dev, form, K, F, q_scale):
+    """F = 22: a quarter row of 11 carrier bytes; q_scale 30: peaked
+    softmax rows, so the max subtraction matters."""
+    B, H, HD = 2, 20, 64
+    q = (torch.randn(B, H, K, HD, device=dev) * q_scale).bfloat16()
     k, v = torch.randn(2, B, H, HD, F, device=dev).unbind(0)
     scale = HD**-0.5
+    before = kernels.LAUNCHES["beam_cross_attention"]
     if form == "int4":
         (kp, ks), (vp, vs) = quant._quantize_kv(k, 4), quant._quantize_kv(v, 4)
         got = ba.beam_cross_attention_i4(q, kp, vp, ks, vs, scale=scale)
@@ -134,6 +145,7 @@ def test_beam_cross_attention(dev, form):
         kb, vb = k.bfloat16(), v.bfloat16()
         got = ba.beam_cross_attention(q, kb, vb, scale=scale)
         want = ba.beam_cross_attention_reference(q, kb, vb, scale=scale)
+    assert kernels.LAUNCHES["beam_cross_attention"] == before + 1
     # the plain version rounds its softmax weights to bf16 (the JAX package's
     # _attend_xa), the kernel keeps them in fp32: four bf16 steps
     _close_bf16(got, want, steps=4)
@@ -152,6 +164,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     q = torch.randn(1, 20, 9, 64, device=dev).bfloat16()  # 9 beams
     k = torch.randn(1, 20, 64, 100, device=dev).bfloat16()
     with pytest.raises(ValueError, match="K = 9"):
+        ba.beam_cross_attention(q, k, k)
+    q = torch.randn(1, 20, 5, 64, device=dev).bfloat16()
+    buf = torch.randn(20 * 64 * 100 + 1, device=dev).bfloat16()
+    k = buf[1:].view(1, 20, 64, 100)  # contiguous, 2 bytes past a 16-byte boundary
+    with pytest.raises(ValueError, match="16-byte"):
         ba.beam_cross_attention(q, k, k)
     q1 = torch.randn(9, 20, 64, device=dev).bfloat16()
     kv = torch.randn(9, 20, 16, 64, device=dev).to(torch.float8_e4m3fn)  # fp8 slot cache
