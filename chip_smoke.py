@@ -23,7 +23,10 @@ JAX package) and fails with a non-zero exit on the first phase that fails:
    the least time the card could take, the larger of the bytes over 3.35 TB/s
    and the operations over the peak rate for the inputs' type; beside them
    the kernel's and the library call's device time (20 calls replayed in a
-   CUDA graph, so the host's dispatch is left out);
+   CUDA graph, so the host's dispatch is left out) and, for the decode
+   kernels K3–K6, the kernel's cold device time (the graph's calls rotate
+   through copies of the inputs, so none is in L2 when read, as in the
+   decode, where each layer's slab comes from device memory);
 4. the greedy slice: large-v3 at full width with random weights from a fixed
    seed, int8 weights + fused qkv, four synthetic 16 kHz WAV requests written
    and parsed by the port, then pad_or_trim → compute_log_mel →
@@ -41,6 +44,12 @@ JAX package) and fails with a non-zero exit on the first phase that fails:
    decoder_step_beam under random parents and tokens (K5, K6) agrees with a
    teacher-forced prefill of every hypothesis (plain PyTorch).
 
+``--kernels-of DIR`` runs phases 1–3 only, with the package of the checkout
+in ``DIR``, and ends with the checks as one JSON list; ``--compare DIR`` runs
+that for ``DIR`` and for this checkout in turns (DIR, this, this, DIR) and
+prints the times side by side: the way to hold a change against its parent
+commit on one card.
+
 Each path (greedy int4, greedy int8, greedy bf16, beam 5) has its own launch
 counts, set to 0 just before its run and read just after it; each run must
 launch every kernel of its path. ``--profile`` runs phase 3, then replaces
@@ -55,7 +64,9 @@ from __future__ import annotations
 
 import functools
 import io
+import itertools
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -76,6 +87,7 @@ BEAM_STEP_CHECK = 8  # beam steps held against a teacher-forced prefill
 # The card's peaks (NVIDIA H100 SXM data sheet, dense, at 700 W): memory
 # bytes/s and operations/s by the type of a kernel's inputs.
 HBM_BYTES_PER_S = 3.35e12
+L2_BYTES = 50e6
 PEAK_OPS_PER_S = {"fp32": 67e12, "bf16": 989e12, "int8": 1979e12}
 
 # The TPU kernel each CUDA kernel replaces, its source in the port, and the
@@ -90,7 +102,7 @@ SOURCES = {
     "decode_attention": ("csrc/decode_attention.cu",
                          "sentiric_stt_whisper_service_tpu/ops/decode_attention.py:146",
                          "greedy_int8"),
-    "decode_attention_i4": ("csrc/decode_attention.cu",
+    "decode_attention_i4": ("csrc/decode_attention_i4.cu",
                             "sentiric_stt_whisper_service_tpu/ops/decode_attention.py:227",
                             "greedy_int4"),
     "beam_attention": ("csrc/beam_attention.cu",
@@ -103,7 +115,8 @@ SOURCES = {
 # The port's kernel functions (every __global__ of csrc/), matched by name in
 # the --profile breakdown.
 PROFILE_KERNELS = ("log_mel_kernel", "flash_attention_kernel", "slab_attention_kernel",
-                   "beam_attention_kernel", "beam_cross_attention_kernel")
+                   "decode_attention_i4_kernel", "beam_attention_kernel",
+                   "beam_cross_attention_kernel")
 
 
 class SmokeFailure(Exception):
@@ -160,6 +173,16 @@ def graph_ms(fn, calls: int = 20, reps: int = 5) -> float:
         times.append(start.elapsed_time(end) / calls)
     del graph
     return statistics.median(times)
+
+
+def cold_graph_ms(call, tensors, calls: int = 20) -> float:
+    """Device milliseconds per call of ``call(*tensors)`` with its inputs cold
+    in L2: the captured calls rotate through copies of ``tensors``, enough
+    that more than twice the L2 is read between two reads of one copy."""
+    n = max(2, math.ceil(2 * L2_BYTES / nbytes(*tensors)) + 1)
+    fns = [functools.partial(call, *(t.clone() for t in tensors)) for _ in range(n)]
+    order = itertools.cycle(fns)
+    return graph_ms(lambda: next(order)(), calls=n * -(-calls // n))
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -234,7 +257,7 @@ def check_kernels(torch, np) -> list[dict]:
     rows = []
 
     def record(name, kernel_fn, plain_fn, tol, why, work, library_fn=None, library_note="",
-               **meta):
+               cold=None, **meta):
         """``tol`` is absolute, or a callable of max |plain| for outputs
         stored in bf16 (whose rounding step scales with the value).
         ``work`` is (bytes moved, operations, input type) for the bound;
@@ -244,7 +267,8 @@ def check_kernels(torch, np) -> list[dict]:
         ``library_ms`` are times per call (``time_ms``: host dispatch
         included wherever the device waits for it); ``device_ms`` and
         ``library_device_ms`` are device times from CUDA-graph replay
-        (``graph_ms``)."""
+        (``graph_ms``); ``cold`` = (call, tensors), the kernel as
+        ``call(*tensors)``, gives ``cold_device_ms`` (``cold_graph_ms``)."""
         got, want = kernel_fn(), plain_fn()
         torch.cuda.synchronize()
         require(got.shape == want.shape and got.dtype == want.dtype,
@@ -255,6 +279,7 @@ def check_kernels(torch, np) -> list[dict]:
         peak = want.float().abs().max().item()
         tol = tol(peak) if callable(tol) else tol
         ms, plain_ms, device_ms = time_ms(kernel_fn), time_ms(plain_fn), graph_ms(kernel_fn)
+        cold_ms = cold_graph_ms(*cold) if cold is not None else None
         library_ms = library_device_ms = None
         if library_fn is not None:
             library_ms, library_device_ms = time_ms(library_fn), graph_ms(library_fn)
@@ -263,7 +288,8 @@ def check_kernels(torch, np) -> list[dict]:
         lib_txt = (f"{library_ms:.4f} ms (device {library_device_ms:.4f}){library_note}"
                    if library_fn is not None else "none")
         print(f"  {name:<38} max_abs_err {err:.3e} (tol {tol:.2e}: {why}; max |plain| "
-              f"{peak:.3g})  kernel {ms:.4f} ms (device {device_ms:.4f})  plain {plain_ms:.4f} ms"
+              f"{peak:.3g})  kernel {ms:.4f} ms (device {device_ms:.4f}"
+              f"{f', cold {cold_ms:.4f}' if cold is not None else ''})  plain {plain_ms:.4f} ms"
               f"  library {lib_txt}  bound {bound_ms:.4f} ms ({bound_by}: "
               f"{work[0] / 1e6:.2f} MB, {work[1] / 1e9:.3f} G{work[2]} ops)  "
               f"{'OK' if ok else 'FAIL'}")
@@ -271,6 +297,7 @@ def check_kernels(torch, np) -> list[dict]:
         mine = not library_note  # a yardstick on other inputs stays out of the JSON line
         rows.append(dict(check=name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                          library_ms=library_ms if mine else None, device_ms=device_ms,
+                         cold_device_ms=cold_ms,
                          library_device_ms=library_device_ms if mine else None,
                          bound_ms=bound_ms, bound_by=bound_by, **meta))
 
@@ -316,34 +343,41 @@ def check_kernels(torch, np) -> list[dict]:
     tol = lambda peak: 2**-6 * peak  # noqa: E731
     why = "2 bf16 steps at max |plain|: fp32 sums, bf16 output"
     slab_ops = 4 * S * H * HD * F
-    record("K3 decode_attention bf16", lambda: da.decode_attention(q1, kb, vb, scale=scale),
+    k3 = functools.partial(da.decode_attention, scale=scale)
+    record("K3 decode_attention bf16", lambda: k3(q1, kb, vb),
            lambda: da.decode_attention_reference(q1, kb, vb, scale=scale),
            tol, why, (nbytes(q1, kb, vb, q1), slab_ops, "bf16"),
            library_fn=lambda: F_.scaled_dot_product_attention(
                q1[:, :, None], kb.transpose(-1, -2), vb.transpose(-1, -2), scale=scale),
-           kernel="decode_attention")
+           cold=(k3, (q1, kb, vb)), kernel="decode_attention")
     pos = torch.tensor([0, 17, 700, F - 1], dtype=torch.int32, device=dev)
     live = int((pos + 1).sum())  # positions the causal bound leaves
+    # SDPA yardstick: the causal bound as a boolean mask, built outside the timing.
+    pos_mask = (torch.arange(F, device=dev)[None, :] <= pos[:, None].long())[:, None, None, :]
     record("K3 decode_attention bf16 causal",
            lambda: da.decode_attention(q1, kb, vb, pos=pos, scale=scale),
            lambda: da.decode_attention_reference(q1, kb, vb, pos=pos, scale=scale),
            tol, why, (nbytes(q1, q1, pos) + live * H * HD * 2 * 2, 4 * H * HD * live, "bf16"),
+           library_fn=lambda: F_.scaled_dot_product_attention(
+               q1[:, :, None], kb.transpose(-1, -2), vb.transpose(-1, -2), attn_mask=pos_mask,
+               scale=scale),
+           library_note=" (SDPA with a boolean mask built outside the timing)",
+           cold=(lambda q_, k_, v_, p_: k3(q_, k_, v_, pos=p_), (q1, kb, vb, pos)),
            kernel="decode_attention")
     k8, k8s = quantize_weight(ks, axis=-2)
     v8, v8s = quantize_weight(vs, axis=-2)
-    record("K3 decode_attention int8",
-           lambda: da.decode_attention(q1, k8, v8, k8s, v8s, scale=scale),
+    record("K3 decode_attention int8", lambda: k3(q1, k8, v8, k8s, v8s),
            lambda: da.decode_attention_reference(q1, k8, v8, k8s, v8s, scale=scale),
            tol, why, (nbytes(q1, k8, v8, k8s, v8s, q1), slab_ops, "int8"),
-           kernel="decode_attention", main=True)
+           cold=(k3, (q1, k8, v8, k8s, v8s)), kernel="decode_attention", main=True)
     k4, k4s = _quantize_kv(ks, 4)
     v4, v4s = _quantize_kv(vs, 4)
-    record("K4 decode_attention_i4",
-           lambda: da.decode_attention_i4(q1, k4, v4, k4s, v4s, scale=scale),
+    k4_call = functools.partial(da.decode_attention_i4, scale=scale)
+    record("K4 decode_attention_i4", lambda: k4_call(q1, k4, v4, k4s, v4s),
            lambda: da.decode_attention_reference(
                q1, unpack_nibbles_i8(k4), unpack_nibbles_i8(v4), k4s, v4s, scale=scale),
            tol, why, (nbytes(q1, k4, v4, k4s, v4s, q1), slab_ops, "int8"),
-           kernel="decode_attention_i4", main=True)
+           cold=(k4_call, (q1, k4, v4, k4s, v4s)), kernel="decode_attention_i4", main=True)
 
     # K5: the beam step's self read at the beam slice's shapes: 4 items x 5
     # beams, slot caches of 160 rows (128 tokens after a 3-token prompt),
@@ -372,21 +406,30 @@ def check_kernels(torch, np) -> list[dict]:
         mask = read.reshape(S, 1, K, K * c_valid)
         for form in ("bf16", "int8"):
             if form == "bf16":
-                args, kw, itemsize = (qb, kcb, vcb, anc, K), {}, 2
+                tensors, itemsize = (qb, kcb, vcb, anc), 2
+
+                def k5(q_, k_, v_, a_, c_valid=c_valid):
+                    return ba.beam_attention(q_, k_, v_, a_, K, scale=scale, c_valid=c_valid)
             else:
-                args, kw, itemsize = (qb, kc8, vc8, anc, K), dict(k_scale=kc8s, v_scale=vc8s), 1
-            kw.update(scale=scale, c_valid=c_valid)
+                tensors, itemsize = (qb, kc8, vc8, anc, kc8s, vc8s), 1
+
+                def k5(q_, k_, v_, a_, ks_, vs_, c_valid=c_valid):
+                    return ba.beam_attention(q_, k_, v_, a_, K, scale=scale, c_valid=c_valid,
+                                             k_scale=ks_, v_scale=vs_)
+            plain = functools.partial(
+                lambda q_, k_, v_, a_, ks_=None, vs_=None, c_valid=c_valid:
+                ba.beam_attention_reference(q_, k_, v_, a_, K, scale, c_valid, ks_, vs_),
+                *tensors)
             scale_bytes = rows_read * 4 * 2 if form == "int8" else 0
             record(f"K5 beam_attention {form} c_valid={c_valid}",
-                   lambda args=args, kw=kw: ba.beam_attention(*args, **kw),
-                   lambda args=args, kw=kw: ba.beam_attention_reference(*args, **kw),
-                   tol, why,
+                   functools.partial(k5, *tensors), plain, tol, why,
                    (nbytes(qb, qb, read) + rows_read * HD * itemsize * 2 + scale_bytes,
                     4 * HD * entries, form),
                    library_fn=(lambda kf=kf, vf=vf, mask=mask: F_.scaled_dot_product_attention(
                        qf, kf, vf, attn_mask=mask, scale=scale)) if form == "bf16" else None,
                    library_note=" (SDPA on a pre-folded copy, fold not timed)",
-                   kernel="beam_attention", main=(form == "bf16" and c_valid == 128))
+                   cold=(k5, tensors), kernel="beam_attention",
+                   main=(form == "bf16" and c_valid == 128))
 
     # K6: the beam step's cross read, the 5 beams of each item against its
     # shared slab [4, 20, 64, 1500]. The plain version rounds its softmax
@@ -396,24 +439,23 @@ def check_kernels(torch, np) -> list[dict]:
     tol6 = lambda peak: 2**-5 * peak  # noqa: E731
     why6 = "4 bf16 steps at max |plain|: plain weights rounded to bf16"
     cross_ops = 4 * S * H * K * HD * F
-    record("K6 beam_cross_attention bf16",
-           lambda: ba.beam_cross_attention(q6, kb, vb, scale=scale),
+    k6 = functools.partial(ba.beam_cross_attention, scale=scale)
+    k6_i4 = functools.partial(ba.beam_cross_attention_i4, scale=scale)
+    record("K6 beam_cross_attention bf16", lambda: k6(q6, kb, vb),
            lambda: ba.beam_cross_attention_reference(q6, kb, vb, scale=scale),
            tol6, why6, (nbytes(q6, kb, vb, q6), cross_ops, "bf16"),
            library_fn=lambda: F_.scaled_dot_product_attention(
                q6, kb.transpose(-1, -2), vb.transpose(-1, -2), scale=scale),
-           kernel="beam_cross_attention")
-    record("K6 beam_cross_attention int8",
-           lambda: ba.beam_cross_attention(q6, k8, v8, k8s, v8s, scale=scale),
+           cold=(k6, (q6, kb, vb)), kernel="beam_cross_attention")
+    record("K6 beam_cross_attention int8", lambda: k6(q6, k8, v8, k8s, v8s),
            lambda: ba.beam_cross_attention_reference(q6, k8, v8, k8s, v8s, scale=scale),
            tol6, why6, (nbytes(q6, k8, v8, k8s, v8s, q6), cross_ops, "int8"),
-           kernel="beam_cross_attention")
-    record("K6 beam_cross_attention int4",
-           lambda: ba.beam_cross_attention_i4(q6, k4, v4, k4s, v4s, scale=scale),
+           cold=(k6, (q6, k8, v8, k8s, v8s)), kernel="beam_cross_attention")
+    record("K6 beam_cross_attention int4", lambda: k6_i4(q6, k4, v4, k4s, v4s),
            lambda: ba.beam_cross_attention_reference(
                q6, unpack_nibbles_i8(k4), unpack_nibbles_i8(v4), k4s, v4s, scale=scale),
            tol6, why6, (nbytes(q6, k4, v4, k4s, v4s, q6), cross_ops, "int8"),
-           kernel="beam_cross_attention", main=True)
+           cold=(k6_i4, (q6, k4, v4, k4s, v4s)), kernel="beam_cross_attention", main=True)
     return rows
 
 
@@ -427,18 +469,49 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false: no CUDA device", file=sys.stderr)
         return 1
-    if not (ROOT / PKG / "__init__.py").is_file():
-        print(f"FAIL: package {PKG} not found beside {Path(__file__).name}", file=sys.stderr)
+    args = sys.argv[1:]
+    if "--compare" in args:
+        return compare(Path(args[args.index("--compare") + 1]).resolve())
+    kernels_of = "--kernels-of" in args
+    root = Path(args[args.index("--kernels-of") + 1]).resolve() if kernels_of else ROOT
+    if not (root / PKG / "__init__.py").is_file():
+        print(f"FAIL: package {PKG} not found in {root}", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(root))
     try:
-        return run(torch, np, profile="--profile" in sys.argv[1:])
+        return run(torch, np, profile="--profile" in args, kernels_only=kernels_of)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
 
 
-def run(torch, np, profile: bool = False) -> int:
+def compare(other: Path) -> int:
+    """``--compare DIR``: phase 3 with the package of another checkout
+    (``DIR``, e.g. the parent commit unpacked with ``git archive``) and with
+    this one's, in turns (other, this, this, other), each in a process of its
+    own (``--kernels-of``), then each check's per-call, device and cold times
+    side by side. Both use this script's checks."""
+    runs = []
+    for label, root in (("other", other), ("this", ROOT), ("this", ROOT), ("other", other)):
+        done = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--kernels-of",
+                               str(root)], capture_output=True, text=True, timeout=900)
+        lines = done.stdout.strip().splitlines()
+        print(f"== {label}: {root}")
+        print("\n".join(line for line in lines[:-1] if not line.startswith("  ptxas")))
+        if done.returncode:
+            print(done.stderr[-4000:], file=sys.stderr)
+            return done.returncode
+        runs.append({row["check"]: row for row in json.loads(lines[-1])})
+    print("== per call / device / cold ms: other (runs 1, 4) | this (runs 2, 3)")
+    fmt = lambda r: "-" if r is None else "/".join(  # noqa: E731
+        "-" if r.get(k) is None else f"{r[k]:.4f}" for k in ("ms", "device_ms", "cold_device_ms"))
+    for name in runs[1]:
+        got = [fmt(run.get(name)) for run in (runs[0], runs[3], runs[1], runs[2])]
+        print(f"  {name:<38} {got[0]}, {got[1]} | {got[2]}, {got[3]}")
+    return 0
+
+
+def run(torch, np, profile: bool = False, kernels_only: bool = False) -> int:
     from sentiric_stt_whisper_service_tpu_torch import kernels
     from sentiric_stt_whisper_service_tpu_torch.audio import (
         parse_wav_robust,
@@ -479,10 +552,13 @@ def run(torch, np, profile: bool = False) -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  " + line.strip())
     kernels.lib()
-    print(f"  built {path.relative_to(ROOT)} in {seconds:.1f} s")
+    print(f"  built {path.relative_to(path.parents[2])} in {seconds:.1f} s")
 
     print(f"== 3. kernel checks [{card}]")
     checks = check_kernels(torch, np)
+    if kernels_only:
+        print(json.dumps(checks))
+        return 0
 
     print(f"== 4. greedy slice: large-v3, int8 weights, int4 cross slab, fp8 self cache "
           f"[{card}]")
@@ -661,6 +737,7 @@ def run(torch, np, profile: bool = False) -> int:
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "device_ms": row["device_ms"], "library_device_ms": row["library_device_ms"],
+            "cold_device_ms": row["cold_device_ms"],
         })
     print(card)
     print(json.dumps({"kernels": kernels_json}))

@@ -1,17 +1,14 @@
-// K3 / K4: single-token (q_len = 1) attention over a KF-layout slab
-// [S, H, 64, F], one templated kernel for three slab forms:
-//   * bf16 slab, optional causal bound pos[s]  (K3, plain form)
-//   * int8 slab with per-position scales       (K3, int8 form)
-//   * packed int4 slab with per-position scales (K4)
+// K3: single-token (q_len = 1) attention over a KF-layout slab
+// [S, H, 64, F], one templated kernel for two slab forms:
+//   * bf16 slab, optional causal bound pos[s]  (plain form)
+//   * int8 slab with per-position scales       (int8 form)
+// K4, the packed int4 form, is csrc/decode_attention_i4.cu.
 //
 // Replaces the Pallas TPU kernels ops/decode_attention.py:_plain_kernel and
 // _quant_kernel, launched by decode_attention (pallas_call at
-// ops/decode_attention.py:146), and ops/decode_attention.py:_i4_kernel,
-// launched by decode_attention_i4 (pallas_call at ops/decode_attention.py:227).
-// The plain PyTorch version is ops/decode_attention.py:
-// decode_attention_reference in this package, which is also what the JAX
-// production path calls for this step. K4 matches that function on the
-// unpacked slab (fp32 weights), not the Pallas _i4_kernel's bf16 weights.
+// ops/decode_attention.py:146). The plain PyTorch version is
+// ops/decode_attention.py:decode_attention_reference in this package, which
+// is also what the JAX production path calls for this step.
 //
 // The kernel is csrc/slab_attention.cuh's slab_attention_kernel with one
 // query row (M = 1): what it computes, what bounds it on the H100 and how it
@@ -35,12 +32,4 @@ extern "C" int sstw_decode_attention_i8(const void* q, const void* k, const void
                                         float scale, void* stream) {
   return slab::launch<slab::kInt8, 1>(q, k, v, k_scale, v_scale, pos, out, S, H, F, 1, scale,
                                       stream);
-}
-
-extern "C" int sstw_decode_attention_i4(const void* q, const void* k_packed,
-                                        const void* v_packed, const void* k_scale,
-                                        const void* v_scale, void* out, int S, int H, int F,
-                                        float scale, void* stream) {
-  return slab::launch<slab::kInt4, 1>(q, k_packed, v_packed, k_scale, v_scale, nullptr, out, S,
-                                      H, F, 1, scale, stream);
 }

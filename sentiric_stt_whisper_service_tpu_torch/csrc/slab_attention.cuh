@@ -1,14 +1,13 @@
 // Attention of M <= 8 query rows over one KF-layout slab [S, H, 64, F] per
-// (item s, head h): the kernel behind K3 / K4 (M = 1, csrc/decode_attention.cu).
+// (item s, head h): the kernel behind K3 (M = 1, csrc/decode_attention.cu).
 // Only M = 1 is launched. The row template is kept, because a single-row
 // rewrite of the same loops compiled K3's bf16 form 35 % slower on the H100
 // (PERF.md); the multi-row support can go once an equally fast single-row
-// version lands. K5 and K6 share its block reduction and constants.
-// Three slab forms:
+// version lands. K5 and K6 use its constants, K6 its block reduction and
+// slab forms. Two slab forms here (K4's packed int4 form has its own kernel,
+// csrc/decode_attention_i4.cu; K6 reads kInt4 too):
 //   * bf16 slab, optional causal bound pos[s]
 //   * int8 slab with per-position scales
-//   * packed int4 slab with per-position scales: byte j holds position j in
-//     its low nibble and position j + F/2 in its high nibble
 //
 // What it computes, per (s, h) and query row m:
 //   score[m, f] = (q[m] . k[:, f]) * scale * k_scale[f]   (f <= pos[s] if given)
@@ -20,16 +19,16 @@
 // (simple first): one block of 256 threads per (s, h); the M query rows share
 // every slab element read, so M rows cost one slab read. Pass 1: each thread
 // takes positions f, f + 256, ...; for each of the 64 d it reads k[d][f], so
-// consecutive threads read consecutive bytes of one row of the KF layout, and
-// multiplies it into M accumulators. Scores go to shared memory (M x F fp32,
-// 30 KB at M = 5, F = 1500), then per-row block max and sum give the softmax
-// weights in place, with v_scale folded in. Pass 2: each warp owns 8 of the 64
-// output channels; its lanes stride the positions of one row of v, again
-// shared by the M rows, and reduce with shuffles. The int4 form walks bytes
-// and unpacks both nibbles in registers with sign-extending shifts, so the
-// slab crosses device memory at half a byte per element. Later work: split F
-// across blocks (only S * H = 80 blocks at the slice's shapes for 132 SMs)
-// and wider loads.
+// consecutive threads read consecutive elements of one row of the KF layout,
+// and multiplies it into M accumulators. Scores go to shared memory (M x F
+// fp32, 30 KB at M = 5, F = 1500), then per-row block max and sum give the
+// softmax weights in place, with v_scale folded in. Pass 2: each warp owns 8
+// of the 64 output channels; its lanes stride the positions of one row of v,
+// again shared by the M rows, and reduce with shuffles. What it lacks for
+// speed is what K4's redesign has (csrc/decode_attention_i4.cu): a cluster
+// of blocks per (s, h) splitting F (only S * H = 80 blocks at the slices'
+// shapes for 132 SMs), all of a block's bytes requested at once, and one
+// pass through the scores.
 
 #pragma once
 
@@ -46,7 +45,7 @@ constexpr int WARPS = THREADS / 32;
 constexpr float NEG = -1e30f;  // the JAX package's mask value
 constexpr int MAX_DYNAMIC_SMEM = 200 * 1024;  // of the 227 KB a block may use
 
-enum Form { kBf16 = 0, kInt8 = 1, kInt4 = 2 };
+enum Form { kBf16 = 0, kInt8 = 1, kInt4 = 2 };  // kInt4: K6's packed carrier only
 
 // Reduce MM values per thread over the block (max or sum); every thread gets
 // the results. Row order and warp order are fixed, so a run is reproducible.
@@ -73,9 +72,6 @@ __device__ __forceinline__ void block_reduce(float (&x)[MM], float (*red)[MM], b
   }
 }
 
-__device__ __forceinline__ float lo_nibble(int8_t b) { return static_cast<float>(((b & 0x0F) ^ 8) - 8); }
-__device__ __forceinline__ float hi_nibble(int8_t b) { return static_cast<float>(b >> 4); }
-
 template <int FORM>
 __device__ __forceinline__ float slab_at(const void* slab, size_t i) {
   if constexpr (FORM == kBf16) {
@@ -101,8 +97,7 @@ slab_attention_kernel(const __nv_bfloat16* __restrict__ q,  // [S, H, M, HD]
   __shared__ float red[WARPS][MM];
 
   const int sh = blockIdx.x;  // s * H + h
-  const int row = (FORM == kInt4) ? F / 2 : F;  // slab row length
-  const size_t slab = static_cast<size_t>(sh) * HD * row;
+  const size_t slab = static_cast<size_t>(sh) * HD * F;
   const float* ks = (FORM == kBf16) ? nullptr : k_scale + static_cast<size_t>(sh) * F;
   const float* vs = (FORM == kBf16) ? nullptr : v_scale + static_cast<size_t>(sh) * F;
   const int limit = pos ? pos[sh / H] : F - 1;
@@ -118,51 +113,23 @@ slab_attention_kernel(const __nv_bfloat16* __restrict__ q,  // [S, H, M, HD]
   float mx[MM];
 #pragma unroll
   for (int m = 0; m < MM; ++m) mx[m] = NEG;
-  if constexpr (FORM == kInt4) {
-    const int8_t* kp = static_cast<const int8_t*>(k) + slab;
-    for (int j = threadIdx.x; j < row; j += THREADS) {
-      float lo[MM], hi[MM];
+  for (int f = threadIdx.x; f < F; f += THREADS) {
+    float acc[MM];
 #pragma unroll
-      for (int m = 0; m < MM; ++m) lo[m] = hi[m] = 0.f;
+    for (int m = 0; m < MM; ++m) acc[m] = 0.f;
 #pragma unroll 8
-      for (int d = 0; d < HD; ++d) {
-        const int8_t b = kp[d * row + j];
-        const float fl = lo_nibble(b), fh = hi_nibble(b);
+    for (int d = 0; d < HD; ++d) {
+      const float kv = slab_at<FORM>(k, slab + d * F + f);
 #pragma unroll
-        for (int m = 0; m < MM; ++m) {
-          lo[m] = fmaf(qs[m][d], fl, lo[m]);
-          hi[m] = fmaf(qs[m][d], fh, hi[m]);
-        }
-      }
-#pragma unroll
-      for (int m = 0; m < MM; ++m) {
-        if (!live(m)) continue;
-        lo[m] *= ks[j];
-        hi[m] *= ks[j + row];
-        w[m * F + j] = lo[m];
-        w[m * F + j + row] = hi[m];
-        mx[m] = fmaxf(mx[m], fmaxf(lo[m], hi[m]));
-      }
+      for (int m = 0; m < MM; ++m) acc[m] = fmaf(qs[m][d], kv, acc[m]);
     }
-  } else {
-    for (int f = threadIdx.x; f < F; f += THREADS) {
-      float acc[MM];
 #pragma unroll
-      for (int m = 0; m < MM; ++m) acc[m] = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < HD; ++d) {
-        const float kv = slab_at<FORM>(k, slab + d * F + f);
-#pragma unroll
-        for (int m = 0; m < MM; ++m) acc[m] = fmaf(qs[m][d], kv, acc[m]);
-      }
-#pragma unroll
-      for (int m = 0; m < MM; ++m) {
-        if (!live(m)) continue;
-        if constexpr (FORM == kInt8) acc[m] *= ks[f];
-        if (f > limit) acc[m] = NEG;
-        w[m * F + f] = acc[m];
-        mx[m] = fmaxf(mx[m], acc[m]);
-      }
+    for (int m = 0; m < MM; ++m) {
+      if (!live(m)) continue;
+      if constexpr (FORM == kInt8) acc[m] *= ks[f];
+      if (f > limit) acc[m] = NEG;
+      w[m * F + f] = acc[m];
+      mx[m] = fmaxf(mx[m], acc[m]);
     }
   }
   block_reduce<MM>(mx, red, true);
@@ -194,25 +161,11 @@ slab_attention_kernel(const __nv_bfloat16* __restrict__ q,  // [S, H, M, HD]
     float acc[MM];
 #pragma unroll
     for (int m = 0; m < MM; ++m) acc[m] = 0.f;
-    if constexpr (FORM == kInt4) {
-      const int8_t* vr = static_cast<const int8_t*>(v) + slab + static_cast<size_t>(d) * row;
-      for (int j = lane; j < row; j += 32) {
-        const int8_t b = vr[j];
-        const float fl = lo_nibble(b), fh = hi_nibble(b);
+    for (int f = lane; f < F; f += 32) {
+      const float vv = slab_at<FORM>(v, slab + static_cast<size_t>(d) * F + f);
 #pragma unroll
-        for (int m = 0; m < MM; ++m) {
-          if (!live(m)) continue;
-          acc[m] = fmaf(w[m * F + j], fl, acc[m]);
-          acc[m] = fmaf(w[m * F + j + row], fh, acc[m]);
-        }
-      }
-    } else {
-      for (int f = lane; f < F; f += 32) {
-        const float vv = slab_at<FORM>(v, slab + static_cast<size_t>(d) * F + f);
-#pragma unroll
-        for (int m = 0; m < MM; ++m) {
-          if (live(m)) acc[m] = fmaf(w[m * F + f], vv, acc[m]);
-        }
+      for (int m = 0; m < MM; ++m) {
+        if (live(m)) acc[m] = fmaf(w[m * F + f], vv, acc[m]);
       }
     }
 #pragma unroll

@@ -5,16 +5,19 @@ The kernels, each with the TPU kernel of the JAX package it replaces:
   * K1 ``log_mel`` (``csrc/mel.cu``): ``ops/pallas_mel.py:74``;
   * K2 ``flash_attention`` (``csrc/flash_attention.cu``):
     ``ops/flash_attention.py:85``;
-  * K3 ``decode_attention`` and K4 ``decode_attention_i4``
-    (``csrc/decode_attention.cu``): ``ops/decode_attention.py:146`` and
-    ``:227``;
-  * K5 ``beam_attention`` (``csrc/beam_attention.cu``):
+  * K3 ``decode_attention`` (``csrc/decode_attention.cu``):
+    ``ops/decode_attention.py:146``;
+  * K4 ``decode_attention_i4`` (``csrc/decode_attention_i4.cu``, a cluster
+    of eight blocks per (item, head) splitting F): ``ops/decode_attention.py:227``;
+  * K5 ``beam_attention`` (``csrc/beam_attention.cu``, a cluster of four
+    blocks per (item, head) splitting the positions):
     ``ops/beam_attention.py:214``;
   * K6 ``beam_cross_attention`` (``csrc/beam_cross_attention.cu``, a cluster
-    of four blocks per (item, head)): ``ops/beam_attention.py:333``.
+    of four blocks per (item, head) splitting d): ``ops/beam_attention.py:333``.
 
-K3 and K4 share one slab-attention template (``csrc/slab_attention.cuh``),
-whose block reduction and constants K5 and K6 use too.
+K3 runs a slab-attention template (``csrc/slab_attention.cuh``) whose
+constants K5 and K6 use too; K4 and K5 share the split-softmax pieces of
+``csrc/split_softmax.cuh`` (cp.async, exp2, the cluster merge).
 
 One ``nvcc`` per ``csrc/*.cu``, all started together, compiles each source
 for ``sm_90a``; one more links the objects into one shared library with a

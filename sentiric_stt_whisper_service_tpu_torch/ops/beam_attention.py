@@ -22,11 +22,17 @@ read as it is. Its numerics are those of the JAX package's
 ``models/whisper._attend_xa``, the function that package's beam step calls.
 
 A CPU tensor takes the plain version (after unpacking, for int4). On CUDA the
-kernels take bf16 queries, hd = 64 and at most 8 beams, and return bf16. K6
-runs a cluster of four blocks per (item, head), each holding a quarter of the
-slab's d rows and the K x F fp32 scores in shared memory, so its slabs must
-start on 16-byte boundaries (one bulk copy per quarter). The JAX package's
-head-paired slot cache is a TPU lane workaround and is not ported.
+kernels take bf16 queries, hd = 64 and at most 8 beams, and return bf16.
+Both run a cluster of four blocks per (item, head), and both copy 16-byte
+pieces of their K and V into shared memory, so those must start on 16-byte
+boundaries. K5's blocks split the live (position, slot) rows below
+``c_valid``: each stages the item's ancestry, numbers the live rows and takes
+a quarter of them, holding up to 256 at a time with K fp32 scores each, and
+forms both products on the tensor cores; the four blocks' softmax partials
+merge over distributed shared memory. K6's blocks split d: each holds a
+quarter of the slab's d rows and the K x F fp32 scores (one bulk copy per
+quarter). The JAX package's head-paired slot cache is a TPU lane
+workaround and is not ported.
 """
 
 from __future__ import annotations
@@ -41,15 +47,31 @@ from .quant import unpack_nibbles_i8
 HEAD_DIM = 64
 MAX_BEAMS = 8
 NEG = -1e30  # the JAX package's mask value
-_WARPS = 8  # csrc/slab_attention.cuh THREADS / 32
 _MAX_SMEM_BYTES = 200 * 1024  # csrc/slab_attention.cuh MAX_DYNAMIC_SMEM
-_MAX_SMEM_FLOATS = _MAX_SMEM_BYTES // 4
-_CLUSTER = 4  # csrc/beam_cross_attention.cu: blocks per (item, head), a d quarter each
+_CLUSTER = 4  # blocks per (item, head): K5 a quarter of the live rows each, K6 a d quarter each
+_K5_CHUNK = 256  # csrc/beam_attention.cu CHUNK_MAX: rows a K5 block stages at once
 
 
 def read_len(C: int, c_valid: int) -> int:
     """Positions a ``c_valid`` bound leaves of a C-long cache (0: all)."""
     return c_valid if 0 < c_valid < C else C
+
+
+def _beam_smem_bytes(K: int, C: int, cv: int, itemsize: int) -> int:
+    """Dynamic shared memory of one K5 block (csrc/beam_attention.cu
+    ``layout``): the item's ancestry, a row number and a slot mask per
+    position, the block's list of live rows (at most a quarter of K x cv,
+    rounded up), one chunk's K rows (in tiles of 8) and V rows, K scores a
+    row, K weights a row as bf16 high and low parts (rows padded to 16), and
+    (int8) two scales a row."""
+    rows = -(-K * cv // _CLUSTER)
+    chunk = min(_K5_CHUNK, rows)
+    align16 = lambda x: -(-x // 16) * 16  # noqa: E731
+    at = align16(align16(align16(K * K * C + 32) + 5 * cv) + 4 * rows)
+    at += -(-chunk // 8) * 8 * HEAD_DIM * itemsize  # K rows, whole tiles of 8
+    at = align16(at + chunk * (HEAD_DIM * itemsize + 4 * K))  # V rows, scores
+    at += 2 * K * -(-chunk // 16) * 16 * 2  # weights: bf16 high and low parts
+    return at + (8 * chunk if itemsize == 1 else 0)
 
 
 def beam_attention_reference(q, k, v, anc, beam_size: int, scale: float = 1.0,
@@ -90,7 +112,7 @@ def beam_attention(
     v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Ancestry-masked beam self-attention → [B*K, H, hd]. CUDA: K5 (bf16
-    slab, or int8 slab with scales); CPU: the plain version."""
+    slab, or int8 slab with scales), one launch; CPU: the plain version."""
     if q.device.type == "cpu":
         return beam_attention_reference(q, k, v, anc, beam_size, scale, c_valid, k_scale, v_scale)
     name = "beam_attention"
@@ -115,8 +137,12 @@ def beam_attention(
         raise ValueError(f"{name}: scale shapes {tuple(k_scale.shape)}, "
                          f"{tuple(v_scale.shape)} != {(BK, H, C)}")
     cv = read_len(C, c_valid)
-    if max(K * K * cv, _WARPS * MAX_BEAMS * HEAD_DIM) > _MAX_SMEM_FLOATS:
-        raise ValueError(f"{name}: K = {K} beams over {cv} positions exceed shared memory")
+    smem = _beam_smem_bytes(K, C, cv, k.element_size())
+    if smem > _MAX_SMEM_BYTES or C > 0xFFFF:
+        raise ValueError(f"{name}: K = {K} beams over a {C}-row cache need {smem} > "
+                         f"{_MAX_SMEM_BYTES} bytes of shared memory")
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError(f"{name}: k and v must start on 16-byte boundaries")
     out = torch.empty_like(q)
     stream = kernels.stream_handle(q.device)
     if quantized:

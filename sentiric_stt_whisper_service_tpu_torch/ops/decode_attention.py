@@ -13,7 +13,12 @@ slab that ``models/whisper.precompute_xa_kv`` builds. Slab forms:
     nibble (``ops/quant._pack_nibbles``).
 
 A CPU tensor takes ``decode_attention_reference`` (after unpacking, for
-int4). On CUDA the kernels take bf16 queries, hd = 64, and return bf16.
+int4). On CUDA the kernels take bf16 queries, hd = 64, and return bf16: K3
+(``csrc/decode_attention.cu``) is one block per (item, head) with the F
+scores in shared memory; K4 (``csrc/decode_attention_i4.cu``) is a cluster
+of eight blocks per (item, head), each holding 1/8 of the carrier's columns
+of all 64 K and V rows, whose softmax partials merge over distributed shared
+memory. K4 takes any even F up to ``MAX_F`` and any carrier alignment.
 """
 
 from __future__ import annotations
@@ -26,7 +31,10 @@ from .. import kernels
 from .quant import unpack_nibbles_i8
 
 HEAD_DIM = 64
-MAX_F = 12_000  # scores live in shared memory: 4 bytes per position, under 48 KB
+# K3's scores live in shared memory, 4 bytes per position, under 48 KB; a K4
+# block holds 2 x 64 x (F/16 + 16) carrier bytes and 6 x F/16 fp32, 116 KB at
+# this F.
+MAX_F = 12_000
 
 
 def decode_attention_reference(q, k, v, k_scale=None, v_scale=None, pos=None,

@@ -3,8 +3,8 @@ CPU) against the JAX package: its Pallas ``beam_attention`` and
 ``beam_cross_attention`` in interpret mode, as tests/test_beam_attention.py
 runs them, its ``beam_attention_reference``, and ``models/whisper._attend_xa``
 (the function its beam step calls for the cross read) on the packed int4
-carrier; and K6's own cluster arithmetic (csrc/beam_cross_attention.cu)
-emulated in torch against the same.
+carrier; and K5's and K6's own cluster arithmetic (csrc/beam_attention.cu,
+csrc/beam_cross_attention.cu) emulated in torch against the same.
 
 Tolerances: atol 2e-5 where both sides compute in fp32, as
 tests/test_torch_decode_attention.py (the same sums in another order). The
@@ -220,3 +220,142 @@ def test_k6_cluster_arithmetic_matches_pallas(form, F_):
     pallas = ref_cross(jnp.asarray(q), k_q, v_q, slab["k_scale"], slab["v_scale"], scale=SCALE,
                        interpret=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(pallas), atol=BF16)
+
+
+NEG = -1e30
+
+
+def k5_cluster(q, k, v, anc, K_, scale, c_valid=0, k_scale=None, v_scale=None, blocks=4,
+               chunk=256):
+    """K5's split of the rows over its cluster and the merge of the blocks'
+    softmax partials (csrc/beam_attention.cu), in fp32 (the kernel forms its
+    products on the tensor cores; their rounding is what the card tests'
+    tolerance covers). A beam with no entry below ``c_valid`` is "full":
+    every row counts for it, with score 0.
+    The live (position, slot) rows (some beam reads them, or any beam is
+    full) are numbered position-major; block r of ``blocks`` takes the rows
+    numbered [T r / blocks, T (r + 1) / blocks) of T. Each block runs an
+    online softmax per destination beam over its rows, ``chunk`` rows at a
+    time, in log2 units (log2(e) folded into the query scale), masked
+    entries at -1e30; the blocks' (m, l, o) merge as
+    out = sum_p o_p 2^(m_p - M) / sum_p l_p 2^(m_p - M)."""
+    BK, H_, C_, hd = k.shape
+    B_ = BK // K_
+    cv = c_valid if 0 < c_valid < C_ else C_
+    qs = q.float() * (scale * LOG2E)
+    k, v = k.float(), v.float()
+    out = torch.empty(BK, H_, hd)
+    for b in range(B_):
+        a = anc[b, :, :, :cv]  # [Kd, Ks, cv]
+        full = ~a.reshape(K_, -1).any(-1)
+        c_all, s_all = (x.reshape(-1) for x in torch.meshgrid(
+            torch.arange(cv), torch.arange(K_), indexing="ij"))  # position-major
+        live = full.any() | a[:, s_all, c_all].any(0)
+        c_all, s_all = c_all[live], s_all[live]
+        T = len(c_all)
+        for h in range(H_):
+            parts = []
+            for r in range(blocks):
+                lo, hi = T * r // blocks, T * (r + 1) // blocks
+                s_i, c_i = s_all[lo:hi], c_all[lo:hi]
+                m = torch.full((K_,), NEG)
+                l_ = torch.zeros(K_)
+                o = torch.zeros(K_, hd)
+                for i0 in range(0, len(s_i), chunk):
+                    s_c, c_c = s_i[i0:i0 + chunk], c_i[i0:i0 + chunk]
+                    rows = b * K_ + s_c
+                    sc = qs[b * K_:(b + 1) * K_, h] @ k[rows, h, c_c].T  # [Kd, rows]
+                    if k_scale is not None:
+                        sc = sc * k_scale[rows, h, c_c]
+                    sc = torch.where(a[:, s_c, c_c], sc, torch.tensor(NEG))
+                    sc = torch.where(full[:, None], torch.tensor(0.0), sc)
+                    m_new = torch.maximum(m, sc.amax(-1))
+                    alpha = torch.exp2(m - m_new)
+                    e = torch.exp2(sc - m_new[:, None])
+                    l_ = l_ * alpha + e.sum(-1)
+                    if v_scale is not None:
+                        e = e * v_scale[rows, h, c_c]
+                    o = o * alpha[:, None] + e @ v[rows, h, c_c]
+                    m = m_new
+                parts.append((m, l_, o))
+            big = torch.stack([p[0] for p in parts]).amax(0)
+            f = [torch.exp2(p[0] - big) for p in parts]
+            den = sum(p[1] * fp for p, fp in zip(parts, f))
+            num = sum(p[2] * fp[:, None] for p, fp in zip(parts, f))
+            out[b * K_:(b + 1) * K_, h] = num / den[:, None]
+    return out
+
+
+def k5_case(seed, K_, C_, c_valid):
+    """2 items x 2 heads; ancestry live only below a third of the read
+    bound, and one beam with no entry at all (the uniform average over every
+    row read). At c_valid = 1 the single position has at most K live rows,
+    so with K < 4 some blocks of the split hold no live row."""
+    rng = np.random.default_rng(seed)
+    B_, H_ = 2, 2
+    q = rng.standard_normal((B_ * K_, H_, HD)).astype(np.float32)
+    k = (rng.standard_normal((B_ * K_, H_, C_, HD)) * 0.3).astype(np.float32)
+    v = (rng.standard_normal((B_ * K_, H_, C_, HD)) * 0.3).astype(np.float32)
+    src = rng.integers(0, K_, size=(B_, K_, C_))
+    anc = np.zeros((B_, K_, K_, C_), bool)
+    b, kd, c = np.meshgrid(np.arange(B_), np.arange(K_), np.arange(C_), indexing="ij")
+    anc[b, kd, src, c] = True
+    anc[:, :, :, max(1, c_valid // 3):] = False
+    if K_ > 1:
+        anc[0, K_ - 1] = False  # beam K-1 of item 0 reads nothing
+    else:
+        anc[1, 0] = False  # the only beam of item 1 reads nothing
+    return q, k, v, anc
+
+
+@pytest.mark.parametrize("form", ["bf16", "int8"])
+@pytest.mark.parametrize("K_", [1, 2, 5, 8])
+@pytest.mark.parametrize("c_valid", [1, 37, 128, 129, 160])
+def test_k5_cluster_arithmetic_matches_pallas(form, K_, c_valid):
+    C_ = 160
+    q, k, v, anc = k5_case(K_ * 1000 + c_valid, K_, C_, c_valid)
+    if form == "bf16":
+        q, k, v = (np.asarray(jnp.asarray(x, jnp.bfloat16), np.float32) for x in (q, k, v))
+        got = k5_cluster(*(torch.from_numpy(x) for x in (q, k, v, anc)), K_, SCALE, c_valid)
+        # the JAX package's plain version and its Pallas kernel on the rows
+        # below c_valid (its kernel takes read bounds in multiples of 128 only)
+        cut = [jnp.asarray(x[:, :, :c_valid]) for x in (k, v)]
+        plain = ref_beam_plain(jnp.asarray(q), *cut, jnp.asarray(anc[..., :c_valid]), K_,
+                               scale=SCALE)
+        pallas = ref_beam(jnp.asarray(q, jnp.bfloat16),
+                          *(x.astype(jnp.bfloat16) for x in cut),
+                          jnp.asarray(anc[..., :c_valid]), beam_size=K_, scale=SCALE,
+                          interpret=True)
+    else:
+        k_q, k_s = ref_quant.quantize_weight(jnp.asarray(k), axis=-1)  # per row
+        v_q, v_s = ref_quant.quantize_weight(jnp.asarray(v), axis=-1)
+        got = k5_cluster(torch.from_numpy(q), t(k_q), t(v_q), torch.from_numpy(anc), K_,
+                         SCALE, c_valid, t(k_s), t(v_s))
+        cut = lambda x: x[:, :, :c_valid]  # noqa: E731
+        plain = ref_beam_plain(jnp.asarray(q), cut(k_q.astype(jnp.float32) * k_s[..., None]),
+                               cut(v_q.astype(jnp.float32) * v_s[..., None]),
+                               jnp.asarray(anc[..., :c_valid]), K_, scale=SCALE)
+        pallas = ref_beam(jnp.asarray(q), cut(k_q), cut(v_q), jnp.asarray(anc[..., :c_valid]),
+                          beam_size=K_, scale=SCALE, interpret=True, k_scale=cut(k_s),
+                          v_scale=cut(v_s))
+    np.testing.assert_allclose(got.numpy(), np.asarray(plain), atol=FP32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas, np.float32), atol=BF16)
+    if form == "bf16":  # and the port's plain version, the CPU path of the same wrapper
+        mine = beam_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                              torch.from_numpy(anc), K_, scale=SCALE, c_valid=c_valid)
+        np.testing.assert_allclose(got.numpy(), mine.numpy(), atol=FP32)
+
+
+@pytest.mark.parametrize("chunk", [1, 7, 40])
+def test_k5_chunks_carry_the_online_softmax(chunk):
+    """Blocks with more live rows than fit at once stage them in chunks; the
+    running (m, l, o) carried across chunks gives the same output."""
+    K_, C_, c_valid = 5, 160, 160
+    q, k, v, anc = k5_case(chunk, K_, C_, c_valid)
+    anc[1] = True  # item 1: every beam reads every row, 200 live rows a block
+    args = [torch.from_numpy(x) for x in (q, k, v, anc)]
+    got = k5_cluster(*args, K_, SCALE, c_valid, chunk=chunk)
+    want = k5_cluster(*args, K_, SCALE, c_valid)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=FP32)
+    plain = ref_beam_plain(*(jnp.asarray(x) for x in (q, k, v, anc)), K_, scale=SCALE)
+    np.testing.assert_allclose(got.numpy(), np.asarray(plain), atol=FP32)

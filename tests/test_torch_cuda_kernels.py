@@ -90,6 +90,26 @@ def test_decode_attention(dev, form):
     _close_bf16(got, want)
 
 
+@pytest.mark.parametrize("R", [1, 11, 375, 750])  # F/2: eight blocks divide none of them
+@pytest.mark.parametrize("offset", [0, 2])
+def test_decode_attention_i4_ragged(dev, R, offset):
+    """K4's column split over its cluster at ragged carrier widths, and a
+    carrier that starts 2 bytes past a 16-byte boundary."""
+    S, H, HD = 3, 20, 64
+    q = torch.randn(S, H, HD, device=dev).bfloat16()
+    k, v = torch.randn(2, S, H, HD, 2 * R, device=dev).unbind(0)
+    (kp, ks), (vp, vs) = quant._quantize_kv(k, 4), quant._quantize_kv(v, 4)
+    if offset:
+        kp, vp = (torch.cat([torch.zeros(offset, dtype=x.dtype, device=dev), x.reshape(-1)])
+                  [offset:].view(x.shape) for x in (kp, vp))
+        assert kp.data_ptr() % 16 == offset
+    before = kernels.LAUNCHES["decode_attention_i4"]
+    got = da.decode_attention_i4(q, kp, vp, ks, vs, scale=HD**-0.5)
+    assert kernels.LAUNCHES["decode_attention_i4"] == before + 1
+    _close_bf16(got, da.decode_attention_reference(
+        q, quant.unpack_nibbles_i8(kp), quant.unpack_nibbles_i8(vp), ks, vs, scale=HD**-0.5))
+
+
 def _ancestry(B, K, C, pos, g):
     """A random valid ancestry: one source slot per (item, beam, position)
     before ``pos``, none after."""
@@ -119,6 +139,47 @@ def test_beam_attention(dev, form, C, c_valid, pos):
     got = ba.beam_attention(*args, **kw)
     assert kernels.LAUNCHES["beam_attention"] == before + 1
     _close_bf16(got, ba.beam_attention_reference(*args, **kw))
+
+
+def _beam_case(dev, form, B, K, C, c_valid, g, masked_beam=True):
+    """K5's inputs: ancestry live below a third of the read bound (so the
+    last blocks of K5's position split hold no live row) and, with
+    ``masked_beam``, one beam that reads nothing (the uniform average)."""
+    H, HD = 20, 64
+    q = torch.randn(B * K, H, HD, generator=g).bfloat16().to(dev)
+    k, v = (torch.randn(B * K, H, C, HD, generator=g) * 0.3 for _ in range(2))
+    anc = _ancestry(B, K, C, max(1, (c_valid or C) // 3), g)
+    if masked_beam:
+        anc[0, K - 1] = False
+    kw = dict(scale=HD**-0.5, c_valid=c_valid)
+    if form == "int8":
+        (k8, ks), (v8, vs) = (quant.quantize_weight(x.to(dev), axis=-1) for x in (k, v))
+        kw.update(k_scale=ks, v_scale=vs)
+        return (q, k8, v8, anc.to(dev), K), kw
+    return (q, k.bfloat16().to(dev), v.bfloat16().to(dev), anc.to(dev), K), kw
+
+
+@pytest.mark.parametrize("form", ["bf16", "int8"])
+@pytest.mark.parametrize("K", [1, 2, 5, 8])
+@pytest.mark.parametrize("c_valid", [1, 37, 128, 129, 160])
+def test_beam_attention_ragged(dev, form, K, c_valid):
+    """K5's position split over its cluster at ragged read bounds, with
+    blocks that hold no live row and a beam that reads nothing."""
+    args, kw = _beam_case(dev, form, 2, K, 160, c_valid, torch.Generator().manual_seed(K))
+    before = kernels.LAUNCHES["beam_attention"]
+    got = ba.beam_attention(*args, **kw)
+    assert kernels.LAUNCHES["beam_attention"] == before + 1
+    _close_bf16(got, ba.beam_attention_reference(*args, **kw))
+
+
+@pytest.mark.parametrize("form", ["bf16", "int8"])
+def test_beam_attention_chunks(dev, form):
+    """A 448-row cache read whole by 8 beams, every row live: 896 candidate
+    rows a block, staged in chunks of 256 with the softmax carried across."""
+    args, kw = _beam_case(dev, form, 1, 8, 448, 0, torch.Generator().manual_seed(3),
+                          masked_beam=False)
+    args = (*args[:3], torch.ones_like(args[3]), args[4])
+    _close_bf16(ba.beam_attention(*args, **kw), ba.beam_attention_reference(*args, **kw))
 
 
 @pytest.mark.parametrize("form", ["bf16", "int8", "int4"])

@@ -2,10 +2,14 @@
 versions on CPU) against the JAX package: the plain, causal and int8 forms
 against its Pallas kernel in interpret mode, and the int4 form against
 ``decode_attention_reference`` on the unpacked slab (the function the JAX
-decode path calls).
+decode path calls); and K4's own split of the carrier's columns over a
+cluster (csrc/decode_attention_i4.cu) emulated in torch against the same and
+against the Pallas int4 kernel in interpret mode.
 
 Tolerance: atol 2e-5 in fp32, as tests/test_decode_attention.py — the same
-sums in another order."""
+sums in another order; 2e-2 against the Pallas int4 kernel, which rounds its
+query and softmax weights to bf16 (tests/test_beam_attention.py's bf16
+tolerance)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -15,6 +19,9 @@ import torch
 from sentiric_stt_whisper_service_tpu.ops import quant as ref_quant
 from sentiric_stt_whisper_service_tpu.ops.decode_attention import (
     decode_attention as ref_decode,
+)
+from sentiric_stt_whisper_service_tpu.ops.decode_attention import (
+    decode_attention_i4 as ref_decode_i4,
 )
 from sentiric_stt_whisper_service_tpu.ops.decode_attention import (
     decode_attention_reference as ref_plain,
@@ -77,3 +84,63 @@ def test_int4_matches_reference_on_unpacked_slab(data):
     # and the port's own packing gives the same carrier
     mine = quant.quantize_xa_kv({"k": t(k), "v": t(v)}, bits=4)
     np.testing.assert_array_equal(mine["k_p"].numpy(), np.asarray(packed["k_p"]))
+
+
+LOG2E = 1.4426950408889634
+
+
+def k4_cluster(q, k_p, v_p, k_scale, v_scale, scale, blocks=8):
+    """K4's split of the carrier columns over its cluster and the merge of
+    the blocks' softmax partials (csrc/decode_attention_i4.cu), in fp32 on
+    the packed carrier [S, H, hd, R], R = F/2: block r of ``blocks`` owns
+    carrier columns
+    [r per, (r + 1) per), per = ceil(R / blocks), i.e. positions j (low
+    nibble) and R + j (high nibble) for those j; it takes its local softmax in
+    log2 units (log2(e) folded into the query scale) and its (m, l, o); the
+    blocks merge as out = sum_p o_p 2^(m_p - M) / sum_p l_p 2^(m_p - M), a
+    block with no columns adding nothing."""
+    R = k_p.shape[-1]
+    per = -(-R // blocks)
+    lo = lambda x: (((x & 15) ^ 8) - 8).float()  # noqa: E731
+    hi = lambda x: (x >> 4).float()  # noqa: E731  (arithmetic shift: sign-extended)
+    qs = q.float() * (scale * LOG2E)
+    parts = []
+    for r in range(blocks):
+        j0, j1 = min(R, r * per), min(R, r * per + per)
+        if j0 == j1:
+            continue
+        kk = torch.cat([lo(k_p[..., j0:j1]), hi(k_p[..., j0:j1])], dim=-1)
+        vv = torch.cat([lo(v_p[..., j0:j1]), hi(v_p[..., j0:j1])], dim=-1)
+        ks = torch.cat([k_scale[..., j0:j1], k_scale[..., R + j0:R + j1]], dim=-1)
+        vs = torch.cat([v_scale[..., j0:j1], v_scale[..., R + j0:R + j1]], dim=-1)
+        s = torch.einsum("shd,shdf->shf", qs, kk) * ks
+        m = s.amax(-1)
+        e = torch.exp2(s - m[..., None])
+        parts.append((m, e.sum(-1), torch.einsum("shf,shdf->shd", e * vs, vv)))
+    big = torch.stack([p[0] for p in parts]).amax(0)
+    f = [torch.exp2(p[0] - big) for p in parts]
+    den = sum(p[1] * fp for p, fp in zip(parts, f))
+    num = sum(p[2] * fp[..., None] for p, fp in zip(parts, f))
+    return num / den[..., None]
+
+
+@pytest.mark.parametrize("R", [1, 375, 750])  # F/2: eight blocks divide none of them
+def test_k4_cluster_arithmetic_matches_pallas(R):
+    rng = np.random.default_rng(R)
+    q = rng.standard_normal((S, H, HD)).astype(np.float32)
+    k = rng.standard_normal((S, H, HD, 2 * R)).astype(np.float32)
+    v = rng.standard_normal((S, H, HD, 2 * R)).astype(np.float32)
+    packed = ref_quant.quantize_xa_kv({"k": jnp.asarray(k), "v": jnp.asarray(v)}, bits=4)
+    got = k4_cluster(t(q), t(packed["k_p"]), t(packed["v_p"]), t(packed["k_scale"]),
+                     t(packed["v_scale"]), SCALE)
+    assert got.shape == (S, H, HD)
+    unpacked = [ref_quant.unpack_nibbles_i8(packed[n]) for n in ("k_p", "v_p")]
+    want = ref_plain(jnp.asarray(q), *unpacked, packed["k_scale"], packed["v_scale"],
+                     scale=SCALE)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+    # the Pallas kernel takes native int4 and rounds its query and weights to
+    # bf16: the JAX package's bf16 tolerance
+    native = [ref_quant._unpack_nibbles(packed[n]) for n in ("k_p", "v_p")]
+    pallas = ref_decode_i4(jnp.asarray(q, jnp.bfloat16), *native, packed["k_scale"],
+                           packed["v_scale"], scale=SCALE, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas, np.float32), atol=2e-2)

@@ -128,5 +128,5 @@ def test_library_name_follows_the_sources():
     assert path.parent == kernels.BUILD_DIR
     assert path == kernels.library_path()  # deterministic
     assert {p.name for p in kernels.CSRC.glob("*.cu")} == {
-        "mel.cu", "flash_attention.cu", "decode_attention.cu", "beam_attention.cu",
-        "beam_cross_attention.cu"}
+        "mel.cu", "flash_attention.cu", "decode_attention.cu", "decode_attention_i4.cu",
+        "beam_attention.cu", "beam_cross_attention.cu"}
