@@ -53,8 +53,9 @@ commit on one card.
 Each path (greedy int4, greedy int8, greedy bf16, beam 5) has its own launch
 counts, set to 0 just before its run and read just after it; each run must
 launch every kernel of its path. ``--profile`` runs phase 3, then replaces
-phases 4–5 with a breakdown of both slices: stage times, and kernel time, launches and the
-device's idle share per decode step under ``torch.profiler``. The last lines
+phases 4–5 with a breakdown of both slices (the greedy one with the int4 and
+the int8 slab): stage times, and kernel time, launches and the device's idle
+share per decode step under ``torch.profiler``. The last lines
 are the card, one JSON object with each kernel's route, source, launch count
 on the path its row times (and on every path), error, times and bound, then
 ``{"ok": true, "device": {...}}``.
@@ -114,7 +115,7 @@ SOURCES = {
 
 # The port's kernel functions (every __global__ of csrc/), matched by name in
 # the --profile breakdown.
-PROFILE_KERNELS = ("log_mel_kernel", "flash_attention_kernel", "slab_attention_kernel",
+PROFILE_KERNELS = ("log_mel_kernel", "flash_attention_kernel", "decode_attention_kernel",
                    "decode_attention_i4_kernel", "beam_attention_kernel",
                    "beam_cross_attention_kernel")
 
@@ -257,7 +258,7 @@ def check_kernels(torch, np) -> list[dict]:
     rows = []
 
     def record(name, kernel_fn, plain_fn, tol, why, work, library_fn=None, library_note="",
-               cold=None, **meta):
+               cold=None, alone=None, per_item=False, **meta):
         """``tol`` is absolute, or a callable of max |plain| for outputs
         stored in bf16 (whose rounding step scales with the value).
         ``work`` is (bytes moved, operations, input type) for the bound;
@@ -268,7 +269,11 @@ def check_kernels(torch, np) -> list[dict]:
         included wherever the device waits for it); ``device_ms`` and
         ``library_device_ms`` are device times from CUDA-graph replay
         (``graph_ms``); ``cold`` = (call, tensors), the kernel as
-        ``call(*tensors)``, gives ``cold_device_ms`` (``cold_graph_ms``)."""
+        ``call(*tensors)``, gives ``cold_device_ms`` (``cold_graph_ms``);
+        ``alone``, the kernel's call where ``kernel_fn`` wraps it in plain
+        PyTorch, gives its own device time ``alone_device_ms``. ``per_item``
+        holds each item (the outputs' first axis) to ``tol`` of its own max
+        |plain| as well."""
         got, want = kernel_fn(), plain_fn()
         torch.cuda.synchronize()
         require(got.shape == want.shape and got.dtype == want.dtype,
@@ -277,9 +282,14 @@ def check_kernels(torch, np) -> list[dict]:
         require(bool(torch.isfinite(got.float()).all()), f"{name}: kernel output not finite")
         err = (got.float() - want.float()).abs().max().item()
         peak = want.float().abs().max().item()
+        for i in range(got.shape[0]) if per_item else ():
+            err_i = (got[i].float() - want[i].float()).abs().max().item()
+            tol_i = tol(want[i].float().abs().max().item())
+            require(err_i <= tol_i, f"{name}: item {i} max_abs_err {err_i:.3e} > tol {tol_i:.2e}")
         tol = tol(peak) if callable(tol) else tol
         ms, plain_ms, device_ms = time_ms(kernel_fn), time_ms(plain_fn), graph_ms(kernel_fn)
         cold_ms = cold_graph_ms(*cold) if cold is not None else None
+        alone_ms = graph_ms(alone) if alone is not None else None
         library_ms = library_device_ms = None
         if library_fn is not None:
             library_ms, library_device_ms = time_ms(library_fn), graph_ms(library_fn)
@@ -289,7 +299,9 @@ def check_kernels(torch, np) -> list[dict]:
                    if library_fn is not None else "none")
         print(f"  {name:<38} max_abs_err {err:.3e} (tol {tol:.2e}: {why}; max |plain| "
               f"{peak:.3g})  kernel {ms:.4f} ms (device {device_ms:.4f}"
-              f"{f', cold {cold_ms:.4f}' if cold is not None else ''})  plain {plain_ms:.4f} ms"
+              f"{f', cold {cold_ms:.4f}' if cold is not None else ''}"
+              f"{f', kernel alone {alone_ms:.4f}' if alone is not None else ''})"
+              f"  plain {plain_ms:.4f} ms"
               f"  library {lib_txt}  bound {bound_ms:.4f} ms ({bound_by}: "
               f"{work[0] / 1e6:.2f} MB, {work[1] / 1e9:.3f} G{work[2]} ops)  "
               f"{'OK' if ok else 'FAIL'}")
@@ -297,27 +309,29 @@ def check_kernels(torch, np) -> list[dict]:
         mine = not library_note  # a yardstick on other inputs stays out of the JSON line
         rows.append(dict(check=name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                          library_ms=library_ms if mine else None, device_ms=device_ms,
-                         cold_device_ms=cold_ms,
+                         cold_device_ms=cold_ms, alone_device_ms=alone_ms,
                          library_device_ms=library_device_ms if mine else None,
                          bound_ms=bound_ms, bound_by=bound_by, **meta))
 
     # K1: 4 windows of 30 s at large-v3's 128 mels; both sides through the
-    # whole-clip clamp so the tolerance is the JAX package's (atol 3e-4).
-    # The bound counts what the function needs, not the kernel's direct DFT:
+    # whole-clip clamp so the tolerance is the JAX package's (atol 3e-4); the
+    # device time with the clamp, then the kernel's alone.
+    # The bound counts what the function needs:
     # per frame a 400-point real FFT (2.5 N log2 N operations), the power (3
     # per bin), the mel projection over the filterbank's nonzeros (2 each)
-    # and the log; bytes: the audio and filterbank read, the log-mel written.
+    # and the log; bytes: the audio, the filterbank's nonzeros and band table
+    # (first bin, count, offset) read, the log-mel written.
     audio = torch.from_numpy(
         np.stack([speech_like(rng, 30.0) for _ in range(N_REQUESTS)])).to(dev)
     n_frames = N_REQUESTS * (audio.shape[-1] // 160)
-    mel_t = fused_mel._bases(128, dev)[2]
-    mel_ops = n_frames * (2.5 * 400 * np.log2(400) + 201 * 3 + 2 * int((mel_t != 0).sum()) + 128)
-    mel_bytes = nbytes(audio, mel_t) + n_frames * 128 * 4
+    nonzeros = int(np.count_nonzero(mel.mel_filterbank(128)))
+    mel_ops = n_frames * (2.5 * 400 * np.log2(400) + 201 * 3 + 2 * nonzeros + 128)
+    mel_bytes = nbytes(audio) + 4 * (nonzeros + 3 * 128) + n_frames * 128 * 4
     record("K1 log_mel [4,480000]->[4,3000,128]",
            lambda: mel.clamp_and_scale(fused_mel.log_mel_power_fused(audio, 128)),
            lambda: mel.clamp_and_scale(mel.log_mel_power(audio, 128)),
            3e-4, "fp32 sums in another order", (mel_bytes, mel_ops, "fp32"),
-           kernel="log_mel", main=True)
+           alone=lambda: fused_mel.log_mel_power_fused(audio, 128), kernel="log_mel", main=True)
 
     # K2: the encoder's attention shape, bf16, q and k pre-scaled.
     shape = (N_REQUESTS, 20, 1500, 64)
@@ -363,7 +377,7 @@ def check_kernels(torch, np) -> list[dict]:
                scale=scale),
            library_note=" (SDPA with a boolean mask built outside the timing)",
            cold=(lambda q_, k_, v_, p_: k3(q_, k_, v_, pos=p_), (q1, kb, vb, pos)),
-           kernel="decode_attention")
+           per_item=True, kernel="decode_attention")
     k8, k8s = quantize_weight(ks, axis=-2)
     v8, v8s = quantize_weight(vs, axis=-2)
     record("K3 decode_attention int8", lambda: k3(q1, k8, v8, k8s, v8s),
@@ -502,9 +516,11 @@ def compare(other: Path) -> int:
             print(done.stderr[-4000:], file=sys.stderr)
             return done.returncode
         runs.append({row["check"]: row for row in json.loads(lines[-1])})
-    print("== per call / device / cold ms: other (runs 1, 4) | this (runs 2, 3)")
+    print("== per call / device / cold (K3-K6) or kernel alone (K1) ms: other (runs 1, 4) | "
+          "this (runs 2, 3)")
     fmt = lambda r: "-" if r is None else "/".join(  # noqa: E731
-        "-" if r.get(k) is None else f"{r[k]:.4f}" for k in ("ms", "device_ms", "cold_device_ms"))
+        f"{r[k]:.4f}" for k in ("ms", "device_ms", "cold_device_ms", "alone_device_ms")
+        if r.get(k) is not None)
     for name in runs[1]:
         got = [fmt(run.get(name)) for run in (runs[0], runs[3], runs[1], runs[2])]
         print(f"  {name:<38} {got[0]}, {got[1]} | {got[2]}, {got[3]}")
@@ -748,7 +764,8 @@ def run(torch, np, profile: bool = False, kernels_only: bool = False) -> int:
 
 
 def profile_slices(torch, cfg, model, audio, timed, card) -> None:
-    """Where the time goes in each slice (int4 cross slab): stage times
+    """Where the time goes in each slice (int4 cross slab; the greedy one
+    also with the int8 slab, whose cross read is K3): stage times
     (CUDA-synchronised host clock), then kernel time, device launches and
     idle share per decode step from torch.profiler, as the difference of an
     8- and a 40-token run (32 steps), and the kernels that take most of it."""
@@ -777,12 +794,14 @@ def profile_slices(torch, cfg, model, audio, timed, card) -> None:
           f"int4 cross K/V {t_xa:.2f} ms (encode_xa_kv_q minus the encoder)")
 
     short, long_ = 8, 40
-    for label, self_dtype, beam in (("greedy, fp8 self cache", torch.float8_e4m3fn, 0),
-                                    (f"beam {BEAM}, bf16 self cache", None, BEAM)):
+    f8 = torch.float8_e4m3fn
+    for label, bits, self_dtype, beam in (("greedy, fp8 self cache", 4, f8, 0),
+                                          ("greedy, int8 slab, fp8 self cache", 8, f8, 0),
+                                          (f"beam {BEAM}, bf16 self cache", 4, None, BEAM)):
         runs = {}
         for n in (short, long_):
             with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                _, _, wall = timed(4, self_dtype, n, beam)
+                _, _, wall = timed(bits, self_dtype, n, beam)
             by_name = {}
             for e in prof.events():
                 if e.device_type == torch.autograd.DeviceType.CUDA:

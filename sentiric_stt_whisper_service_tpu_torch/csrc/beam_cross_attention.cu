@@ -69,6 +69,31 @@ constexpr int MIN_BLOCKS = 3;      // an SM (<= 85 registers a thread): the beam
                                    // slice's 320 blocks in one wave on 132 SMs
 constexpr float LOG2E = 1.4426950408889634f;
 
+// Reduce K values per thread over the block (max or sum); every thread gets
+// the results. Row order and warp order are fixed, so a run is reproducible.
+template <int K>
+__device__ __forceinline__ void block_reduce(float (&x)[K], float (*red)[K], bool is_max) {
+#pragma unroll
+  for (int m = 0; m < K; ++m) {
+    for (int off = 16; off > 0; off >>= 1) {
+      const float y = __shfl_xor_sync(0xffffffffu, x[m], off);
+      x[m] = is_max ? fmaxf(x[m], y) : x[m] + y;
+    }
+  }
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  __syncthreads();  // red[] free from any earlier reduction
+  if (lane == 0) {
+#pragma unroll
+    for (int m = 0; m < K; ++m) red[warp][m] = x[m];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int m = 0; m < K; ++m) {
+    x[m] = red[0][m];
+    for (int w = 1; w < WARPS; ++w) x[m] = is_max ? fmaxf(x[m], red[w][m]) : x[m] + red[w][m];
+  }
+}
+
 // Signed nibble / byte -> fp32: bias the value into the low mantissa bits of
 // 2^23 and subtract (exact).
 __device__ __forceinline__ float nib_lo(uint32_t b) {
@@ -254,7 +279,7 @@ beam_cross_attention_kernel(const __nv_bfloat16* __restrict__ q,  // [BH, K, HD]
       }
     }
   }
-  slab::block_reduce<K>(mx, red, true);  // -inf for a quarter with no positions
+  block_reduce<K>(mx, red, true);  // -inf for a quarter with no positions
 #pragma unroll
   for (int m = 0; m < K; ++m) mx[m] *= LOG2E;
   for (int f = f0 + tid; f < f1; f += THREADS) {
@@ -265,7 +290,7 @@ beam_cross_attention_kernel(const __nv_bfloat16* __restrict__ q,  // [BH, K, HD]
       sum[m] += e;
     }
   }
-  slab::block_reduce<K>(sum, red, false);
+  block_reduce<K>(sum, red, false);
   if (tid == 0) {
 #pragma unroll
     for (int m = 0; m < K; ++m) {

@@ -17,10 +17,7 @@
 // Bound on the H100: device memory. An (s, h) reads 2 x 64 x F/2 carrier
 // bytes and 2 x F scales once for 4 flops per slab element; at the greedy
 // slice's shape (4 x 20 heads, F = 1500) that is 8.6 MB, 0.0026 ms at
-// 3.35 TB/s. What kept the first version (csrc/slab_attention.cuh's int4
-// form) at a tenth of that bound was 80 blocks for 132 SMs, each thread
-// loading single bytes down 64 rows at most 8 at a time, a warp walking
-// each V row 32 bytes at a time, and two passes through the scores.
+// 3.35 TB/s.
 //
 // Design: a cluster of eight blocks per (s, h), 640 blocks, all resident at
 // once (64 registers a thread), which split the carrier columns: block r
@@ -76,16 +73,6 @@ __host__ __device__ inline size_t smem_bytes(int R) {
   return 2 * static_cast<size_t>(HD) * piece_stride(per) + 3 * 2 * 4 * groups(per) * 4;
 }
 
-__device__ __forceinline__ float block_reduce(float x, float* red, bool is_max) {
-  x = is_max ? split::warp_max(x) : split::warp_sum(x);
-  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = x;
-  __syncthreads();
-  x = red[0];
-#pragma unroll
-  for (int w = 1; w < WARPS; ++w) x = is_max ? fmaxf(x, red[w]) : x + red[w];
-  return x;
-}
-
 // The four carrier bytes of columns [jl, jl + 4) of a row whose piece
 // starts at byte `off` of `row` in shared memory (jl a multiple of 4).
 __device__ __forceinline__ uint32_t word_at(const unsigned char* row, int off, int jl) {
@@ -120,22 +107,12 @@ decode_attention_i4_kernel(const __nv_bfloat16* __restrict__ q,  // [S, H, HD]
   float* kss = sc + 2 * P4;
   float* vss = kss + 2 * P4;
 
-  // Row d's piece starts at byte (k0 + d R) mod 16 of its shared-memory row.
-  // Eight lanes a row copy its 16-byte units that hold a byte of the piece,
-  // so a warp's requests cover four rows' contiguous runs. Two groups: K
-  // with both scale runs, then V, which lands while the scores are formed.
+  // Row d's piece starts at byte (k0 + d R) mod 16 of its shared-memory row
+  // (split::copy_pieces). Two groups: K with both scale runs, then V, which
+  // lands while the scores are formed.
   const uintptr_t k0 = reinterpret_cast<uintptr_t>(kp) + static_cast<size_t>(sh) * HD * R + j0;
   const uintptr_t v0 = reinterpret_cast<uintptr_t>(vp) + static_cast<size_t>(sh) * HD * R + j0;
-  auto copy_rows = [&](uintptr_t base, unsigned char* dst0) {
-    for (int d = tid / 8; d < HD; d += THREADS / 8) {
-      const uintptr_t at = base + static_cast<size_t>(d) * R;
-      const uintptr_t unit0 = at & ~static_cast<uintptr_t>(15);
-      for (int u = tid % 8; 16 * u < static_cast<int>(at & 15) + n; u += 8) {
-        split::cp_async16(dst0 + d * stride + 16 * u, reinterpret_cast<const void*>(unit0 + 16 * u));
-      }
-    }
-  };
-  copy_rows(k0, ks);
+  split::copy_pieces<HD, THREADS>(k0, R, n, ks, stride);
   const size_t srow = static_cast<size_t>(sh) * 2 * R + j0;
   for (int jl = tid; jl < n; jl += THREADS) {
     split::cp_async4(kss + jl, k_scale + srow + jl);
@@ -144,7 +121,7 @@ decode_attention_i4_kernel(const __nv_bfloat16* __restrict__ q,  // [S, H, HD]
     split::cp_async4(vss + P4 + jl, v_scale + srow + R + jl);
   }
   split::cp_async_commit();
-  copy_rows(v0, vs);
+  split::copy_pieces<HD, THREADS>(v0, R, n, vs, stride);
   split::cp_async_commit();
   if (tid < HD) qs[tid] = __bfloat162float(q[static_cast<size_t>(sh) * HD + tid]) * qscale;
   split::cp_async_wait<1>();  // this thread's K copies
@@ -183,7 +160,7 @@ decode_attention_i4_kernel(const __nv_bfloat16* __restrict__ q,  // [S, H, HD]
       }
     }
   }
-  mx = block_reduce(mx, red[0], true);  // -inf for a block with no columns
+  mx = split::block_reduce<WARPS>(mx, red[0], true);  // -inf for a block with no columns
   float sum = 0.f;
   for (int jl = tid; jl < P4; jl += THREADS) {  // columns past n: weight 0
     const bool valid = jl < n;
@@ -193,7 +170,7 @@ decode_attention_i4_kernel(const __nv_bfloat16* __restrict__ q,  // [S, H, HD]
     sc[P4 + jl] = valid ? e1 * vss[P4 + jl] : 0.f;
   }
   split::cp_async_wait<0>();  // this thread's V copies
-  sum = block_reduce(sum, red[1], false);  // its barrier publishes the weights and V
+  sum = split::block_reduce<WARPS>(sum, red[1], false);  // its barrier publishes the weights and V
 
   // Values: warp w takes rows [16 w, 16 w + 16) in two passes of eight, lane
   // g a word's four columns (eight positions); a reduce-scatter over the
@@ -224,33 +201,10 @@ decode_attention_i4_kernel(const __nv_bfloat16* __restrict__ q,  // [S, H, HD]
         acc[r] = fmaf(wh.w, hi[3], a);
       }
     }
-    split::scatter_step<4>(acc, lane & 16, 16);
-    split::scatter_step<2>(acc, lane & 8, 8);
-    split::scatter_step<1>(acc, lane & 4, 4);
-    acc[0] += __shfl_xor_sync(0xffffffffu, acc[0], 2);
-    res[pass] = acc[0] + __shfl_xor_sync(0xffffffffu, acc[0], 1);
+    res[pass] = split::warp_row_sums(acc, lane);
   }
-
-  // Push this block's partials to the blocks that own their channels, then
-  // merge the ones pushed here and write channels [DQ rank, DQ rank + DQ).
-  split::cluster_wait();  // every block of the cluster is running
-  if ((lane & 3) == 0) {
-#pragma unroll
-    for (int pass = 0; pass < 2; ++pass) {
-      const int d = warp * DW + 8 * pass + (lane >> 2);
-      *split::remote(&part_o[rank][d % DQ], d / DQ) = res[pass];
-    }
-  }
-  if (tid < CLUSTER) {
-    float* ml = split::remote(&part_ml[rank][0], tid);
-    ml[0] = mx;
-    ml[1] = sum;
-  }
-  split::cluster_sync();
-  if (tid < DQ) {
-    const float o = split::merge<CLUSTER>(&part_ml[0][0], &part_ml[0][1], &part_o[0][tid], 2, DQ);
-    out[static_cast<size_t>(sh) * HD + rank * DQ + tid] = __float2bfloat16(o);
-  }
+  split::push_merge_store<CLUSTER, HD>(res, mx, sum, part_o, part_ml, rank,
+                                       out + static_cast<size_t>(sh) * HD);
 }
 
 }  // namespace

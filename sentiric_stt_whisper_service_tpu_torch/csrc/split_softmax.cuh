@@ -1,8 +1,9 @@
-// Pieces shared by K4 (csrc/decode_attention_i4.cu) and K5
-// (csrc/beam_attention.cu): kernels that split the positions of one softmax
-// row over the NB blocks of a thread-block cluster. Each block requests all
-// of its bytes at once (cp.async into shared memory), takes a local softmax
-// over its positions and keeps (m, l, o): the row max in log2 units, the sum
+// Pieces shared by K3 (csrc/decode_attention.cu), K4
+// (csrc/decode_attention_i4.cu) and K5 (csrc/beam_attention.cu): kernels
+// that split the positions of one softmax row over the NB blocks of a
+// thread-block cluster. Each block requests all of its bytes at once
+// (cp.async into shared memory), takes a local softmax over its positions
+// and keeps (m, l, o): the row max in log2 units, the sum
 // of 2^(s - m) and the weighted sum of values. Block r owns an NB-th of the
 // output channels: every block pushes its m, l and the o of those channels
 // into block r's shared memory (remote stores over distributed shared
@@ -13,6 +14,10 @@
 // another's shared memory, so none waits for the others after the barrier.
 // A block with no positions keeps m = -inf (or the mask value), l = 0, o = 0
 // and adds nothing.
+// K3 and K4 also share the copy of a block's piece of 64 rows that start on
+// any byte boundary (copy_pieces) and the end of the kernel: the sums of the
+// rows' partials over a warp (warp_row_sums), the pushes, the merge and the
+// store of the block's channels (push_merge_store).
 
 #pragma once
 
@@ -88,6 +93,19 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// The max or sum of x over a block of NW warps, in every thread; red holds
+// NW floats. One barrier: a block that reduces twice uses two red arrays.
+template <int NW>
+__device__ __forceinline__ float block_reduce(float x, float* red, bool is_max) {
+  x = is_max ? warp_max(x) : warp_sum(x);
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = x;
+  __syncthreads();
+  x = red[0];
+#pragma unroll
+  for (int w = 1; w < NW; ++w) x = is_max ? fmaxf(x, red[w]) : x + red[w];
+  return x;
+}
+
 // One step of a reduce-scatter over lanes: partners `lane ^ lane_xor` each
 // keep one half of x (the upper half where `upper`) and add the other's copy
 // of it, so after log2(N) steps each lane holds one sum of N.
@@ -120,6 +138,35 @@ __device__ __forceinline__ void nib4(uint32_t w, float (&lo)[4], float (&hi)[4])
   }
 }
 
+// Requests a block's piece of ROWS rows: row d's `nbytes` bytes start at
+// base + d * row_bytes, on any byte boundary, and are copied with 16-byte
+// cp.async from the aligned address at or below that start into
+// dst + d * stride (the piece's bytes keep their offset mod 16). Eight lanes
+// a row, so a warp's requests cover four rows' contiguous runs.
+template <int ROWS, int THREADS>
+__device__ __forceinline__ void copy_pieces(uintptr_t base, size_t row_bytes, int nbytes,
+                                            unsigned char* dst, int stride) {
+  if (nbytes <= 0) return;
+  for (int d = threadIdx.x / 8; d < ROWS; d += THREADS / 8) {
+    const uintptr_t at = base + d * row_bytes;
+    const uintptr_t unit0 = at & ~static_cast<uintptr_t>(15);
+    for (int u = threadIdx.x % 8; 16 * u < static_cast<int>(at & 15) + nbytes; u += 8) {
+      cp_async16(dst + d * stride + 16 * u, reinterpret_cast<const void*>(unit0 + 16 * u));
+    }
+  }
+}
+
+// The sums over a warp's 32 lanes of eight rows' partials acc[r]: a
+// reduce-scatter (7 shuffles, then 2 adds) that leaves row (lane >> 2)'s sum
+// in every lane of its quad.
+__device__ __forceinline__ float warp_row_sums(float (&acc)[8], int lane) {
+  scatter_step<4>(acc, lane & 16, 16);
+  scatter_step<2>(acc, lane & 8, 8);
+  scatter_step<1>(acc, lane & 4, 4);
+  acc[0] += __shfl_xor_sync(0xffffffffu, acc[0], 2);
+  return acc[0] + __shfl_xor_sync(0xffffffffu, acc[0], 1);
+}
+
 // The merge of NB blocks' partials pushed into this block: m[p * ms] and
 // l[p * ms] are block p's row max and sum, o[p * os] its partial output.
 template <int NB>
@@ -136,6 +183,41 @@ __device__ __forceinline__ float merge(const float* m, const float* l, const flo
     num = fmaf(o[p * os], f, num);
   }
   return num / den;
+}
+
+
+// The end of a cluster of NB blocks over one (item, head) whose 4 warps each
+// hold 16 of the HD = 64 output rows, row 16 w + 8 pass + (lane >> 2) in
+// res[pass] of every lane of its quad: every block pushes m, l and its o of
+// block r's channels [HD/NB r, HD/NB r + HD/NB) into block r's part_ml and
+// part_o, and one cluster barrier later merges the partials pushed to it
+// and writes its channels of `out` (the (item, head)'s HD outputs).
+template <int NB, int HD>
+__device__ __forceinline__ void push_merge_store(const float (&res)[2], float m, float l,
+                                                 float (&part_o)[NB][HD / NB],
+                                                 float (&part_ml)[NB][2], int rank,
+                                                 __nv_bfloat16* out) {
+  constexpr int DQ = HD / NB;
+  static_assert(HD == 64, "four warps of 16 rows");
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  cluster_wait();  // every block of the cluster is running
+  if ((lane & 3) == 0) {
+#pragma unroll
+    for (int pass = 0; pass < 2; ++pass) {
+      const int d = 16 * warp + 8 * pass + (lane >> 2);
+      *remote(&part_o[rank][d % DQ], d / DQ) = res[pass];
+    }
+  }
+  if (tid < NB) {
+    float* ml = remote(&part_ml[rank][0], tid);
+    ml[0] = m;
+    ml[1] = l;
+  }
+  cluster_sync();
+  if (tid < DQ) {
+    out[rank * DQ + tid] =
+        __float2bfloat16(merge<NB>(&part_ml[0][0], &part_ml[0][1], &part_o[0][tid], 2, DQ));
+  }
 }
 
 }  // namespace

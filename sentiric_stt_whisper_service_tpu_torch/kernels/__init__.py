@@ -2,11 +2,12 @@
 
 The kernels, each with the TPU kernel of the JAX package it replaces:
 
-  * K1 ``log_mel`` (``csrc/mel.cu``): ``ops/pallas_mel.py:74``;
+  * K1 ``log_mel`` (``csrc/mel.cu``, a 200-point FFT per frame and a sparse
+    mel projection): ``ops/pallas_mel.py:74``;
   * K2 ``flash_attention`` (``csrc/flash_attention.cu``):
     ``ops/flash_attention.py:85``;
-  * K3 ``decode_attention`` (``csrc/decode_attention.cu``):
-    ``ops/decode_attention.py:146``;
+  * K3 ``decode_attention`` (``csrc/decode_attention.cu``, a cluster of
+    eight blocks per (item, head) splitting F): ``ops/decode_attention.py:146``;
   * K4 ``decode_attention_i4`` (``csrc/decode_attention_i4.cu``, a cluster
     of eight blocks per (item, head) splitting F): ``ops/decode_attention.py:227``;
   * K5 ``beam_attention`` (``csrc/beam_attention.cu``, a cluster of four
@@ -15,8 +16,8 @@ The kernels, each with the TPU kernel of the JAX package it replaces:
   * K6 ``beam_cross_attention`` (``csrc/beam_cross_attention.cu``, a cluster
     of four blocks per (item, head) splitting d): ``ops/beam_attention.py:333``.
 
-K3 runs a slab-attention template (``csrc/slab_attention.cuh``) whose
-constants K5 and K6 use too; K4 and K5 share the split-softmax pieces of
+K3, K5 and K6 share the constants and slab forms of
+``csrc/slab_attention.cuh``; K3, K4 and K5 the split-softmax pieces of
 ``csrc/split_softmax.cuh`` (cp.async, exp2, the cluster merge).
 
 One ``nvcc`` per ``csrc/*.cu``, all started together, compiles each source
@@ -62,7 +63,7 @@ LAUNCHES = {
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "sstw_log_mel": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "sstw_log_mel": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "sstw_flash_attention": [_P, _P, _P, _P, _I, _I, _P],
     "sstw_decode_attention_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "sstw_decode_attention_i8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],

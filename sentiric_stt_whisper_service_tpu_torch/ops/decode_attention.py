@@ -13,12 +13,14 @@ slab that ``models/whisper.precompute_xa_kv`` builds. Slab forms:
     nibble (``ops/quant._pack_nibbles``).
 
 A CPU tensor takes ``decode_attention_reference`` (after unpacking, for
-int4). On CUDA the kernels take bf16 queries, hd = 64, and return bf16: K3
-(``csrc/decode_attention.cu``) is one block per (item, head) with the F
-scores in shared memory; K4 (``csrc/decode_attention_i4.cu``) is a cluster
-of eight blocks per (item, head), each holding 1/8 of the carrier's columns
-of all 64 K and V rows, whose softmax partials merge over distributed shared
-memory. K4 takes any even F up to ``MAX_F`` and any carrier alignment.
+int4). On CUDA the kernels take bf16 queries, hd = 64, and return bf16. Both
+are a cluster of eight blocks per (item, head), each holding 1/8 of the
+positions of all 64 K and V rows, whose softmax partials merge over
+distributed shared memory: K3 (``csrc/decode_attention.cu``) over bf16 or
+int8 rows, copying only the positions a causal ``pos[s]`` leaves (all of
+them, weighed evenly as the plain version's mask does, where pos[s] < 0), K4 (``csrc/decode_attention_i4.cu``) over the carrier's columns.
+Both take any slab alignment, K3 any F up to ``MAX_F`` and K4 any even F up
+to it.
 """
 
 from __future__ import annotations
@@ -31,10 +33,11 @@ from .. import kernels
 from .quant import unpack_nibbles_i8
 
 HEAD_DIM = 64
-# K3's scores live in shared memory, 4 bytes per position, under 48 KB; a K4
-# block holds 2 x 64 x (F/16 + 16) carrier bytes and 6 x F/16 fp32, 116 KB at
-# this F.
-MAX_F = 12_000
+# The largest F whose blocks fit the kernels' 200 KB of dynamic shared
+# memory: a K3 bf16 block holds 64 rows of about F/4 + 19 bytes (rounded to
+# 16) and F/8 fp32, 200 KB at this F (csrc/decode_attention.cu smem_bytes);
+# K3's int8 block and a K4 block hold less.
+MAX_F = 12_288
 
 
 def decode_attention_reference(q, k, v, k_scale=None, v_scale=None, pos=None,

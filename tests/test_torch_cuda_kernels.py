@@ -38,13 +38,19 @@ def dev():
     return torch.device("cuda")
 
 
-def _close_bf16(got, want, steps=2):
+def _close_bf16(got, want, steps=2, per_item=False):
+    """Within ``steps`` bf16 steps of the largest plain output; with
+    ``per_item``, of each item's (the first axis) own largest as well."""
     assert got.dtype == want.dtype == torch.bfloat16 and got.shape == want.shape
     err = (got.float() - want.float()).abs().max().item()
     assert err <= steps * 2**-7 * want.float().abs().max().item(), err
+    for g, w in zip(got, want) if per_item else ():
+        _close_bf16(g, w, steps)
 
 
-@pytest.mark.parametrize("n_samples,n_mels", [(48000, 80), (16123, 128)])
+# 300 and 100 frames: a ragged last tile of eight; 201 samples: the
+# shortest clip (one frame); 1359 samples: one whole tile
+@pytest.mark.parametrize("n_samples,n_mels", [(48000, 80), (16123, 128), (201, 80), (1359, 128)])
 def test_log_mel(dev, n_samples, n_mels):
     audio = torch.randn(3, n_samples, device=dev) * 0.1
     before = kernels.LAUNCHES["log_mel"]
@@ -87,7 +93,43 @@ def test_decode_attention(dev, form):
         kb, vb = k.bfloat16(), v.bfloat16()
         got = da.decode_attention(q, kb, vb, pos=pos, scale=scale)
         want = da.decode_attention_reference(q, kb, vb, pos=pos, scale=scale)
-    _close_bf16(got, want)
+    _close_bf16(got, want, per_item=form == "causal")
+
+
+# F = 1 and 7: fewer positions than the cluster's eight blocks; 1501: odd;
+# MAX_F: the largest whose blocks fit. offset 2: every row starts only 2-byte
+# aligned (bf16 rows of odd F, int8 rows of any F, start on no 4-byte boundary).
+@pytest.mark.parametrize("F", [1, 7, 1501, da.MAX_F])
+@pytest.mark.parametrize("form", ["bf16", "causal", "int8"])
+@pytest.mark.parametrize("offset", [0, 2])
+def test_decode_attention_ragged(dev, F, form, offset):
+    """K3's position split over its cluster at ragged F, under causal bounds
+    on and just past a block boundary (position 0 only: seven idle blocks),
+    and none (pos = -1: every position weighed evenly, as the plain version
+    does); each item within tolerance of its own outputs."""
+    S, H, HD = 4, 20, 64
+    q = torch.randn(S, H, HD, device=dev).bfloat16()
+    k, v = torch.randn(2, S, H, HD, F, device=dev).unbind(0)
+    scales, pos = (), None
+    if form == "int8":
+        (k, ks), (v, vs) = quant.quantize_weight(k), quant.quantize_weight(v)
+        scales = (ks, vs)
+    else:
+        k, v = k.bfloat16(), v.bfloat16()
+    if form == "causal":
+        per = -(-F // 8)
+        pos = torch.tensor([0, 2 * per - 1, 2 * per, -1], dtype=torch.int32,
+                           device=dev).clamp(max=F - 1)
+    if offset:
+        n = offset // k.element_size()
+        k, v = (torch.cat([torch.zeros(n, dtype=x.dtype, device=dev), x.reshape(-1)])[n:]
+                .view(x.shape) for x in (k, v))
+        assert k.data_ptr() % 16 == offset
+    before = kernels.LAUNCHES["decode_attention"]
+    got = da.decode_attention(q, k, v, *scales, pos=pos, scale=HD**-0.5)
+    assert kernels.LAUNCHES["decode_attention"] == before + 1
+    _close_bf16(got, da.decode_attention_reference(q, k, v, *scales, pos=pos, scale=HD**-0.5),
+                per_item=True)
 
 
 @pytest.mark.parametrize("R", [1, 11, 375, 750])  # F/2: eight blocks divide none of them
@@ -231,6 +273,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     k = buf[1:].view(1, 20, 64, 100)  # contiguous, 2 bytes past a 16-byte boundary
     with pytest.raises(ValueError, match="16-byte"):
         ba.beam_cross_attention(q, k, k)
+    q = torch.randn(1, 2, 64, device=dev).bfloat16()
+    k = torch.randn(1, 2, 64, da.MAX_F + 1, device=dev).bfloat16()  # K3's blocks would not fit
+    with pytest.raises(ValueError, match="outside"):
+        da.decode_attention(q, k, k)
     q1 = torch.randn(9, 20, 64, device=dev).bfloat16()
     kv = torch.randn(9, 20, 16, 64, device=dev).to(torch.float8_e4m3fn)  # fp8 slot cache
     anc = torch.ones(1, 9, 9, 16, dtype=torch.bool, device=dev)

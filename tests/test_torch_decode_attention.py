@@ -2,9 +2,11 @@
 versions on CPU) against the JAX package: the plain, causal and int8 forms
 against its Pallas kernel in interpret mode, and the int4 form against
 ``decode_attention_reference`` on the unpacked slab (the function the JAX
-decode path calls); and K4's own split of the carrier's columns over a
-cluster (csrc/decode_attention_i4.cu) emulated in torch against the same and
-against the Pallas int4 kernel in interpret mode.
+decode path calls); and the kernels' own splits over a cluster emulated in
+torch against the same: K3's split of the positions
+(csrc/decode_attention.cu) against the Pallas kernel in interpret mode, K4's
+split of the carrier's columns (csrc/decode_attention_i4.cu) against the
+Pallas int4 kernel in interpret mode.
 
 Tolerance: atol 2e-5 in fp32, as tests/test_decode_attention.py — the same
 sums in another order; 2e-2 against the Pallas int4 kernel, which rounds its
@@ -144,3 +146,77 @@ def test_k4_cluster_arithmetic_matches_pallas(R):
     pallas = ref_decode_i4(jnp.asarray(q, jnp.bfloat16), *native, packed["k_scale"],
                            packed["v_scale"], scale=SCALE, interpret=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(pallas, np.float32), atol=2e-2)
+
+
+def k3_cluster(q, k, v, k_scale=None, v_scale=None, pos=None, scale=1.0, blocks=8):
+    """K3's split of the positions over its cluster and the merge of the
+    blocks' softmax partials (csrc/decode_attention.cu), in fp32 on the slab
+    [S, H, hd, F]: block r of ``blocks`` owns positions [r per, (r + 1) per),
+    per = ceil(F / blocks), and attends those <= pos[s] (all without
+    ``pos``); it takes its local softmax in log2 units (log2(e) folded into
+    the query scale), k_scale on the scores and v_scale on the weights, and
+    its (m, l, o); the blocks merge as in ``k4_cluster``, a block with no
+    live position adding nothing. Where pos[s] < 0 every position is live
+    with the score 0 (the reference masks all alike and weighs them
+    evenly). Returns the output and, per item, the number of blocks with no
+    live position."""
+    S, H, hd, F = k.shape
+    per = -(-F // blocks)
+    qs = q.float() * (scale * LOG2E)
+    out, idle = torch.empty(S, H, hd), []
+    for s in range(S):
+        limit = F - 1 if pos is None else int(pos[s])
+        even = limit < 0
+        limit = F - 1 if even else limit
+        parts = []
+        for r in range(blocks):
+            f0, f1 = min(F, r * per), min(F, r * per + per, limit + 1)
+            if f1 <= f0:
+                continue
+            sc = torch.einsum("hd,hdf->hf", qs[s], k[s, ..., f0:f1].float())
+            if even:
+                sc = torch.zeros_like(sc)
+            elif k_scale is not None:
+                sc = sc * k_scale[s, :, f0:f1]
+            m = sc.amax(-1)
+            e = torch.exp2(sc - m[:, None])
+            w = e * v_scale[s, :, f0:f1] if v_scale is not None else e
+            parts.append((m, e.sum(-1), torch.einsum("hf,hdf->hd", w, v[s, ..., f0:f1].float())))
+        big = torch.stack([p[0] for p in parts]).amax(0)
+        f = [torch.exp2(p[0] - big) for p in parts]
+        den = sum(p[1] * fp for p, fp in zip(parts, f))
+        out[s] = sum(p[2] * fp[:, None] for p, fp in zip(parts, f)) / den[:, None]
+        idle.append(blocks - len(parts))
+    return out, idle
+
+
+# F = 1 and 7: blocks with no positions at all; 61 and 1500: eight blocks
+# divide neither (the last block holds 5 and 184 positions). The causal
+# bounds: position 0 only (every block but the first idle), the last
+# position of block 1, the first of block 2, and none (pos = -1: the
+# reference weighs every position evenly).
+@pytest.mark.parametrize("F", [1, 7, 61, 1500])
+@pytest.mark.parametrize("form", ["bf16", "causal", "int8"])
+def test_k3_cluster_arithmetic_matches_pallas(F, form):
+    rng = np.random.default_rng(F)
+    S = 4
+    q = rng.standard_normal((S, H, HD)).astype(np.float32)
+    k = rng.standard_normal((S, H, HD, F)).astype(np.float32)
+    v = rng.standard_normal((S, H, HD, F)).astype(np.float32)
+    per = -(-F // 8)
+    pos = np.minimum(F - 1, [0, 2 * per - 1, 2 * per, -1]).astype(np.int32)
+    scales, jpos, tpos = (), None, None
+    if form == "int8":
+        (k, k_s), (v, v_s) = (ref_quant.quantize_weight(jnp.asarray(x), axis=-2) for x in (k, v))
+        scales = (k_s, v_s)
+    elif form == "causal":
+        jpos, tpos = jnp.asarray(pos), t(pos)
+    got, idle = k3_cluster(t(q), t(k), t(v), *map(t, scales), pos=tpos, scale=SCALE)
+    if form == "causal":
+        assert idle == ([7] * 4 if F == 1 else [7, 6, 5, 8 - -(-F // per)])
+    want = ref_plain(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), *scales, pos=jpos,
+                     scale=SCALE)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+    pallas = ref_decode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), *scales, pos=jpos,
+                        scale=SCALE, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), atol=2e-5)
