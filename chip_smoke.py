@@ -16,7 +16,8 @@ JAX package) and fails with a non-zero exit on the first phase that fails:
    each kernel (K1 log-mel, K2 flash attention, K3 decode attention in its
    bf16, causal and int8 forms, K4 int4 decode attention, K5 beam
    self-attention in its bf16 and int8 forms at two read bounds, K6 beam
-   cross-attention in its bf16, int8 and int4 forms) against its plain
+   cross-attention in its bf16, int8 and int4 forms; K5 and K6 again at
+   beam 9, two groups of query beams) against its plain
    PyTorch version on the same inputs, with the stated tolerance; each one's
    median time per call beside the plain version's, the time of one PyTorch
    call that computes the same function where there is one, and the bound:
@@ -32,17 +33,24 @@ JAX package) and fails with a non-zero exit on the first phase that fails:
    and parsed by the port, then pad_or_trim → compute_log_mel →
    encode_xa_kv_q(bits=4) → greedy decode_window with an fp8 self cache and
    timestamp rules (the JAX package's bench prompt and 128-token budget),
-   then text. It repeats with an int8 and a bf16 cross slab on a short
-   budget, so K3's two forms run in the pipeline too. It checks that logits
-   and log-probabilities are finite, that stepwise decoding (the kernels)
-   agrees with a teacher-forced prefill (plain PyTorch) of the same tokens,
-   and that K1–K4 were launched during the slice;
+   then text, three times (the spread of one tree). It repeats once with an
+   int8 and a bf16 cross slab on a short budget, so K3's two forms run in
+   the pipeline too. The decode replays the step's CUDA graph
+   (``models/graphs.py``): a first request of each shape class, cut short,
+   captures it (capture seconds, static buffers and graph pool printed).
+   It checks that logits and log-probabilities are finite, that the graphed
+   ``DecodeResult`` equals eager decoding on the card in every field (on a
+   16-token cap for int4), that stepwise decoding (the kernels) agrees with
+   a teacher-forced prefill (plain PyTorch) of the same tokens, and that
+   K1–K4 were launched during the slice;
 5. the beam slice: the same requests and model through decode_window_beam
    (beam 5, int4 cross slab, bf16 self cache, timestamp rules, 128-token
-   budget). It checks that K5 and K6 each launched once per layer per step
-   and K3/K4 not at all, that log-probabilities are finite, and that
-   decoder_step_beam under random parents and tokens (K5, K6) agrees with a
-   teacher-forced prefill of every hypothesis (plain PyTorch).
+   budget, three times), graphed as phase 4. It checks that K5 and K6 each
+   launched once per layer per step and K3/K4 not at all, that
+   log-probabilities are finite, that the graphed result equals eager
+   decoding (16-token budget), and that decoder_step_beam under random
+   parents and tokens (K5, K6) agrees with a teacher-forced prefill of every
+   hypothesis (plain PyTorch).
 
 ``--kernels-of DIR`` runs phases 1–3 only, with the package of the checkout
 in ``DIR``, and ends with the checks as one JSON list; ``--compare DIR`` runs
@@ -51,11 +59,13 @@ prints the times side by side: the way to hold a change against its parent
 commit on one card.
 
 Each path (greedy int4, greedy int8, greedy bf16, beam 5) has its own launch
-counts, set to 0 just before its run and read just after it; each run must
-launch every kernel of its path. ``--profile`` runs phase 3, then replaces
-phases 4–5 with a breakdown of both slices (the greedy one with the int4 and
-the int8 slab): stage times, and kernel time, launches and the device's idle
-share per decode step under ``torch.profiler``. The last lines
+counts, set to 0 just before its (first) run and read just after it; each
+run must launch every kernel of its path. A graph replay adds the launches
+its capture counted. ``--profile`` runs phase 3, then replaces phases 4–5
+with a breakdown of both slices (the greedy one with the int4 and the int8
+slab): stage times, and kernel time, launches and the device's idle share
+per decode step under ``torch.profiler``, eager and graphed, and the graphed
+greedy slice's wall at four intervals between reads of the device. The last lines
 are the card, one JSON object with each kernel's route, source, launch count
 on the path its row times (and on every path), error, times and bound, then
 ``{"ok": true, "device": {...}}``.
@@ -80,9 +90,12 @@ SEED = 0
 N_REQUESTS = 4
 DURATIONS_S = (5.0, 12.0, 21.0, 30.0)
 DECODE_TOKENS = 128  # the JAX package's bench budget
-SHORT_TOKENS = 16  # the int8 / bf16 cross-slab repeats
+SHORT_TOKENS = 16  # the int8 / bf16 cross-slab repeats, and the eager comparisons
+RUNS = 3  # runs of the greedy int4 and beam 5 slices: the spread of one tree
 STEP_CHECK_TOKENS = 16  # stepwise vs teacher-forced logits
 BEAM = 5  # the JAX package's default beam_size
+BEAM_WIDE = 9  # above the 8 query beams a K5 or K6 cluster takes: two groups
+WARM_TOKENS = 4  # the capture run's tokens: the measured run's shape class, cut short
 BEAM_STEP_CHECK = 8  # beam steps held against a teacher-forced prefill
 
 # The card's peaks (NVIDIA H100 SXM data sheet, dense, at 700 W): memory
@@ -470,6 +483,33 @@ def check_kernels(torch, np) -> list[dict]:
                q6, unpack_nibbles_i8(k4), unpack_nibbles_i8(v4), k4s, v4s, scale=scale),
            tol6, why6, (nbytes(q6, k4, v4, k4s, v4s, q6), cross_ops, "int8"),
            cold=(k6_i4, (q6, k4, v4, k4s, v4s)), kernel="beam_cross_attention", main=True)
+
+    # K5 and K6 at beam 9: two groups of query beams per (item, head), each
+    # over all 9 slots (K5) or the whole slab (K6). A package that refuses
+    # 9 beams (a parent under --compare) leaves these rows out.
+    if ba.MAX_BEAMS < BEAM_WIDE:
+        return rows
+    K9, c_valid = BEAM_WIDE, 128
+    q9 = torch.randn((S * K9, H, HD), generator=g, device=dev).bfloat16()
+    k9, v9 = ((torch.randn((S * K9, H, C, HD), generator=g, device=dev) * 0.3).bfloat16()
+              for _ in range(2))
+    src = torch.randint(0, K9, (S, K9, C), generator=g, device=dev)
+    anc9 = F_.one_hot(src, K9).permute(0, 1, 3, 2).bool().contiguous()
+    anc9[..., 100:] = False
+    read = anc9[..., :c_valid]
+    rows_read, entries = int(read.any(dim=1).sum()) * H, int(read.sum()) * H
+    k5_9 = functools.partial(ba.beam_attention, beam_size=K9, scale=scale, c_valid=c_valid)
+    record(f"K5 beam_attention bf16 beam {K9} c_valid={c_valid}",
+           lambda: k5_9(q9, k9, v9, anc9),
+           lambda: ba.beam_attention_reference(q9, k9, v9, anc9, K9, scale, c_valid),
+           tol, why, (nbytes(q9, q9, read) + rows_read * HD * 2 * 2, 4 * HD * entries, "bf16"),
+           cold=(k5_9, (q9, k9, v9, anc9)), kernel="beam_attention")
+    q6_9 = torch.randn((S, H, K9, HD), generator=g, device=dev).bfloat16()
+    record(f"K6 beam_cross_attention int4 beam {K9}", lambda: k6_i4(q6_9, k4, v4, k4s, v4s),
+           lambda: ba.beam_cross_attention_reference(
+               q6_9, unpack_nibbles_i8(k4), unpack_nibbles_i8(v4), k4s, v4s, scale=scale),
+           tol6, why6, (nbytes(q6_9, k4, v4, k4s, v4s, q6_9), 4 * S * H * K9 * HD * F, "int8"),
+           cold=(k6_i4, (q6_9, k4, v4, k4s, v4s)), kernel="beam_cross_attention")
     return rows
 
 
@@ -609,33 +649,80 @@ def run(torch, np, profile: bool = False, kernels_only: bool = False) -> int:
     audio_s = sum(len(d.pcm_data) for d in decoded) / 16000.0
     audio = torch.from_numpy(audio_np).to(dev)
 
-    def pipeline(bits: int, self_dtype, budget: int, beam: int = 0):
+    # (imported after phase 3, which --kernels-of runs with packages that predate it)
+    from sentiric_stt_whisper_service_tpu_torch.models import DecodeGraphs
+
+    graphs = DecodeGraphs()  # every graphed class of this run: one memory pool
+
+    def pipeline(bits: int, self_dtype, budget: int, beam: int = 0, **kw):
         mel = compute_log_mel(audio, n_mels=cfg.n_mels, dtype=cfg.dtype)
         require(tuple(mel.shape) == (N_REQUESTS, 3000, cfg.n_mels), f"mel shape {tuple(mel.shape)}")
         xa = encode_xa_kv_q(cfg, model, mel, bits) if bits else encode_xa_kv(cfg, model, mel)
-        if beam:
-            return xa, decode_window_beam(cfg, model, xa, tinit, sb, 0, ids, sup,
-                                          beam_size=beam, max_len=sb + budget)
-        return xa, decode_window(cfg, model, xa, tinit, sb, 0, ids, sup,
-                                 max_len=sb + budget, self_dtype=self_dtype)
+        return xa, decode(xa, self_dtype, budget, beam, **kw)
 
-    def timed(bits, self_dtype, budget, beam=0):
+    def decode(xa, self_dtype, budget: int, beam: int = 0, **kw):
+        kw.setdefault("graphs", graphs)
+        if beam:
+            return decode_window_beam(cfg, model, xa, tinit, sb, 0, ids, sup, beam_size=beam,
+                                      max_len=sb + budget, **kw)
+        return decode_window(cfg, model, xa, tinit, sb, 0, ids, sup, max_len=sb + budget,
+                             self_dtype=self_dtype, **kw)
+
+    def timed(bits, self_dtype, budget, beam=0, **kw):
         torch.cuda.synchronize()
         t = time.perf_counter()
         with torch.inference_mode():
-            xa, res = pipeline(bits, self_dtype, budget, beam)
+            xa, res = pipeline(bits, self_dtype, budget, beam, **kw)
         torch.cuda.synchronize()
         return xa, res, time.perf_counter() - t
 
-    def report(label, res, wall, budget, launched, show_text):
+    def capture(label, bits, self_dtype, budget, beam=0):
+        """The first request of the measured run's shape class, cut short
+        (greedy: ``sample_cap``; beam: an abort after one chunk), captures
+        its graphs."""
+        before = len(graphs.stats())
+        if beam:
+            polls = itertools.count()
+            _, res, wall = timed(bits, self_dtype, budget, beam, abort_chunk=WARM_TOKENS,
+                                 should_abort=lambda: next(polls) >= 2)
+            require(res is None, f"{label}: the capture run was not cut short")
+        else:
+            _, _, wall = timed(bits, self_dtype, budget, sample_cap=WARM_TOKENS)
+        for st in graphs.stats()[before:]:
+            print(f"  [{label}] captured {st['graphs']} graph(s) of a step in "
+                  f"{st['capture_s']:.2f} s (eager warm-up included); static buffers "
+                  f"{st['static_bytes'] / 2**20:.1f} MiB, graph pool grown by "
+                  f"{st['pool_bytes'] / 2**20:.1f} MiB [{card}]")
+        print(f"  [{label}] capture run ({WARM_TOKENS} tokens, capture included): {wall:.2f} s")
+
+    def same_as_eager(label, xa, self_dtype, budget, beam=0, **kw):
+        """The graphed window's DecodeResult against eager decoding on the
+        card, every field bit for bit."""
+        with torch.inference_mode():
+            eager = decode(xa, self_dtype, budget, beam, graph=False, **kw)
+            graphed = decode(xa, self_dtype, budget, beam, **kw)
+        for name in graphed._fields:
+            require(torch.equal(getattr(graphed, name), getattr(eager, name)),
+                    f"{label}: graphed {name} differs from eager decoding")
+        n = [n - sb for n in graphed.lengths.tolist()]
+        print(f"  [{label}] graphed DecodeResult equals eager decoding in every field "
+              f"({budget}-token budget{', cap ' + str(kw['sample_cap']) if kw else ''}; "
+              f"tokens {n})")
+
+    def report(label, res, walls, budget, launched, show_text):
         lengths = res.lengths.tolist()
         n_tok = [n - sb for n in lengths]
         lp = torch.cat([res.token_logprobs[i, sb:n] for i, n in enumerate(lengths)])
         require(bool(torch.isfinite(lp).all()), f"{label}: non-finite token log-probabilities")
         for name in ("no_speech_probs", "sum_logprobs", "avg_logprobs"):
             require(bool(torch.isfinite(getattr(res, name)).all()), f"{label}: non-finite {name}")
-        print(f"  [{label}] budget {budget}: wall {wall:.3f} s, {audio_s / wall:.1f} audio-s/s, "
-              f"{sum(n_tok) / wall:.1f} tokens/s [{card}]; launches {launched}")
+        wall = walls[0]
+        print(f"  [{label}] budget {budget}, graphed: wall {wall:.3f} s, {audio_s / wall:.1f} "
+              f"audio-s/s, {sum(n_tok) / wall:.1f} tokens/s [{card}]; launches {launched}")
+        if len(walls) > 1:
+            print(f"  [{label}] walls of {len(walls)} runs: "
+                  f"{', '.join(f'{w:.3f}' for w in walls)} s; tokens/s "
+                  f"{', '.join(f'{sum(n_tok) / w:.1f}' for w in walls)}")
         if show_text:
             for i in range(N_REQUESTS):
                 toks = res.tokens[i, sb : lengths[i]].tolist()
@@ -643,28 +730,44 @@ def run(torch, np, profile: bool = False, kernels_only: bool = False) -> int:
                 print(f"    request {i} ({DURATIONS_S[i]:.0f} s): {n_tok[i]} tokens, first "
                       f"{toks[:8]}, text {ascii(text[:72])}")
 
+    def measured(runs, *args, **kw):
+        """``runs`` runs of one request; the launch counts of the first, set
+        to 0 just before it and read just after."""
+        walls = []
+        for r in range(runs):
+            kernels.reset_launch_counts()
+            xa, res, wall = timed(*args, **kw)
+            if r == 0:
+                first, launched = (xa, res), dict(kernels.LAUNCHES)
+            walls.append(wall)
+        return first[0], first[1], walls, launched
+
     f8 = torch.float8_e4m3fn
-    _, _, warm = timed(4, f8, 4)
-    print(f"  warm-up run (4 tokens): {warm:.2f} s")
     if profile:
         profile_slices(torch, cfg, model, audio, timed, card)
         print(card)
         return 0
 
     paths = {}  # path -> the launch counts of its run
-    for path, label, bits, self_dtype, budget, cross_read in (
-        ("greedy_int4", "int4 slab, fp8 self cache", 4, f8, DECODE_TOKENS, "decode_attention_i4"),
-        ("greedy_int8", "int8 slab, fp8 self cache", 8, f8, SHORT_TOKENS, "decode_attention"),
-        ("greedy_bf16", "bf16 slab, bf16 self cache", 0, None, SHORT_TOKENS, "decode_attention"),
+    for path, label, bits, self_dtype, budget, cross_read, runs in (
+        ("greedy_int4", "int4 slab, fp8 self cache", 4, f8, DECODE_TOKENS, "decode_attention_i4",
+         RUNS),
+        ("greedy_int8", "int8 slab, fp8 self cache", 8, f8, SHORT_TOKENS, "decode_attention", 1),
+        ("greedy_bf16", "bf16 slab, bf16 self cache", 0, None, SHORT_TOKENS, "decode_attention", 1),
     ):
-        kernels.reset_launch_counts()
-        xa, res, wall = timed(bits, self_dtype, budget)
-        paths[path] = dict(kernels.LAUNCHES)
-        report(f"{path}: {label}", res, wall, budget, paths[path], show_text=bits == 4)
+        capture(path, bits, self_dtype, budget)
+        xa, res, walls, paths[path] = measured(runs, bits, self_dtype, budget)
+        report(f"{path}: {label}", res, walls, budget, paths[path], show_text=bits == 4)
         for name in ("log_mel", "flash_attention", cross_read):
             require(paths[path][name] > 0, f"{path}: kernel {name} was not launched")
+        require(paths[path][cross_read] % cfg.n_text_layer == 0,
+                f"{path}: {cross_read} launched {paths[path][cross_read]} times, not once per "
+                f"layer per step")
         if bits == 4:
             main_xa, main_tokens = xa, res.tokens
+            same_as_eager(path, xa, self_dtype, budget, sample_cap=SHORT_TOKENS)
+        else:
+            same_as_eager(path, xa, self_dtype, budget)
 
     # Stepwise decoding (K4 cross read, fp8 self cache) against a
     # teacher-forced prefill of the same tokens (plain cross read).
@@ -688,15 +791,14 @@ def run(torch, np, profile: bool = False, kernels_only: bool = False) -> int:
 
     print(f"== 5. beam slice: large-v3, int8 weights, int4 cross slab, bf16 self cache, "
           f"beam {BEAM} [{card}]")
-    _, _, warm = timed(4, None, 4, beam=BEAM)
-    print(f"  warm-up run (4 tokens): {warm:.2f} s")
     torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launch_counts()
-    xa, res, wall = timed(4, None, DECODE_TOKENS, beam=BEAM)
-    paths["beam5"] = beam_launches = dict(kernels.LAUNCHES)
-    report(f"beam5: int4 slab, bf16 self cache, beam {BEAM}", res, wall, DECODE_TOKENS,
+    capture("beam5", 4, None, DECODE_TOKENS, beam=BEAM)
+    xa, res, walls, beam_launches = measured(RUNS, 4, None, DECODE_TOKENS, beam=BEAM)
+    paths["beam5"] = beam_launches
+    report(f"beam5: int4 slab, bf16 self cache, beam {BEAM}", res, walls, DECODE_TOKENS,
            beam_launches, show_text=True)
     print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    same_as_eager(f"beam{BEAM}", xa, None, SHORT_TOKENS, beam=BEAM)
     L = cfg.n_text_layer
     n_k5, n_k6 = beam_launches["beam_attention"], beam_launches["beam_cross_attention"]
     require(n_k5 > 0 and n_k5 == n_k6 and n_k5 % L == 0,
@@ -768,7 +870,10 @@ def profile_slices(torch, cfg, model, audio, timed, card) -> None:
     also with the int8 slab, whose cross read is K3): stage times
     (CUDA-synchronised host clock), then kernel time, device launches and
     idle share per decode step from torch.profiler, as the difference of an
-    8- and a 40-token run (32 steps), and the kernels that take most of it."""
+    8- and a 40-token run (32 steps), and the kernels that take most of it;
+    each eagerly and as replays of the step's CUDA graph (captured before
+    the trace). Then the graphed greedy slice's wall at four intervals
+    between reads of the device."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -798,31 +903,51 @@ def profile_slices(torch, cfg, model, audio, timed, card) -> None:
     for label, bits, self_dtype, beam in (("greedy, fp8 self cache", 4, f8, 0),
                                           ("greedy, int8 slab, fp8 self cache", 8, f8, 0),
                                           (f"beam {BEAM}, bf16 self cache", 4, None, BEAM)):
-        runs = {}
-        for n in (short, long_):
-            with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                _, _, wall = timed(bits, self_dtype, n, beam)
-            by_name = {}
-            for e in prof.events():
-                if e.device_type == torch.autograd.DeviceType.CUDA:
-                    t_us, count = by_name.get(e.name, (0.0, 0))
-                    by_name[e.name] = (t_us + e.time_range.elapsed_us(), count + 1)
-            busy = sum(t for t, _ in by_name.values()) / 1e3
-            launches = sum(c for _, c in by_name.values())
-            runs[n] = (wall * 1e3, busy, launches, by_name)
-            print(f"  [{label}] {n} tokens under the profiler: wall {wall * 1e3:.1f} ms, device "
-                  f"busy {busy:.1f} ms ({launches} device events), idle "
-                  f"{100 * (1 - busy / (wall * 1e3)):.1f} %")
-        steps = long_ - short
-        (w0, b0, l0, _), (w1, b1, l1, names) = runs[short], runs[long_]
-        print(f"  [{label}] per decode step ({long_} minus {short} tokens): wall "
-              f"{(w1 - w0) / steps:.2f} ms, device busy {(b1 - b0) / steps:.3f} ms, "
-              f"{(l1 - l0) / steps:.0f} device events [{card}]")
-        ranked = sorted(names.items(), key=lambda kv: -kv[1][0])
-        print(f"    the {long_}-token run's top kernels, then the port's own:")
-        for name, (t_us, count) in ranked[:8] + [r for r in ranked[8:] if any(
-                o in r[0] for o in PROFILE_KERNELS)]:
-            print(f"    {t_us / 1e3:9.2f} ms {count:7d}x {t_us / count:8.2f} us  {name[:90]}")
+        for mode in ("eager", "graphed"):
+            runs = {}
+            for n in (short, long_):
+                if mode == "graphed":  # the class's capture, outside the trace
+                    timed(bits, self_dtype, n, beam)
+                with torch_profile(activities=[ProfilerActivity.CPU,
+                                               ProfilerActivity.CUDA]) as prof:
+                    _, _, wall = timed(bits, self_dtype, n, beam, graph=mode == "graphed")
+                by_name = {}
+                for e in prof.events():
+                    if e.device_type == torch.autograd.DeviceType.CUDA:
+                        t_us, count = by_name.get(e.name, (0.0, 0))
+                        by_name[e.name] = (t_us + e.time_range.elapsed_us(), count + 1)
+                busy = sum(t for t, _ in by_name.values()) / 1e3
+                launches = sum(c for _, c in by_name.values())
+                runs[n] = (wall * 1e3, busy, launches, by_name)
+                print(f"  [{label}, {mode}] {n} tokens under the profiler: wall "
+                      f"{wall * 1e3:.1f} ms, device busy {busy:.1f} ms ({launches} device "
+                      f"events), idle {100 * (1 - busy / (wall * 1e3)):.1f} %")
+            steps = long_ - short
+            (w0, b0, l0, _), (w1, b1, l1, names) = runs[short], runs[long_]
+            print(f"  [{label}, {mode}] per decode step ({long_} minus {short} tokens): wall "
+                  f"{(w1 - w0) / steps:.2f} ms, device busy {(b1 - b0) / steps:.3f} ms, "
+                  f"{(l1 - l0) / steps:.0f} device events, idle "
+                  f"{100 * (1 - (b1 - b0) / (w1 - w0)):.1f} % [{card}]")
+            ranked = sorted(names.items(), key=lambda kv: -kv[1][0])
+            print(f"    the {long_}-token run's top kernels, then the port's own:")
+            for name, (t_us, count) in ranked[:8] + [r for r in ranked[8:] if any(
+                    o in r[0] for o in PROFILE_KERNELS)]:
+                print(f"    {t_us / 1e3:9.2f} ms {count:7d}x {t_us / count:8.2f} us  {name[:90]}")
+
+    # The graphed greedy loop's reads of the device: every SYNC_STEPS steps
+    # (the host stalls once each), at the slice's budget; best of 2 walls.
+    from sentiric_stt_whisper_service_tpu_torch.models import sampling
+
+    default = sampling.SYNC_STEPS
+    timed(4, f8, DECODE_TOKENS)  # the class's capture
+    try:
+        for every in (1, 4, 16, 64):
+            sampling.SYNC_STEPS = every
+            wall = min(timed(4, f8, DECODE_TOKENS)[2] for _ in range(2))
+            print(f"  [greedy, fp8 self cache, graphed] {DECODE_TOKENS} tokens, device read every "
+                  f"{every} steps: wall {wall:.3f} s (best of 2) [{card}]")
+    finally:
+        sampling.SYNC_STEPS = default
 
 
 def drift_check(label, reference, stepwise, torch) -> None:

@@ -48,9 +48,16 @@
 // (csrc/split_softmax.cuh). Rows are staged in chunks of at most CHUNK_MAX
 // with the online softmax carried across chunks; at the beam slice's shapes
 // (5 beams, cv = 128 or 160) a block has at most 200 rows and one chunk.
-// K is a runtime value (at most 8, one warp each in step 5, the tensor
-// cores' A rows in steps 4 and 6): no per-thread array is sized by it, so a
-// template on K would save no registers.
+// K is a runtime value: no per-thread array is sized by it, so a template
+// on K would save no registers. A cluster serves a group of at most 8 query
+// beams (one warp each in step 5, the tensor cores' A rows in steps 4 and
+// 6) against all K slots of its item; up to 8 beams that is every beam, one
+// launch of B x H clusters. Above 8 the K beams split into
+// ceil(K / groups) sized groups, as few as fit the shared memory
+// (group_size), one launch of B x H x groups clusters: each stages its
+// group's rows of the ancestry and numbers the rows its beams read. Each
+// query beam's output depends on its own ancestry row only, so the split is
+// exact. Slot masks are 32 bits: at most MAX_BEAMS = 32 beams.
 
 #include "slab_attention.cuh"
 #include "split_softmax.cuh"
@@ -65,7 +72,8 @@ using slab::WARPS;
 using split::ex2;
 
 constexpr int CLUSTER = 4;        // blocks per (item, head), an equal share of the live rows each
-constexpr int KMAX = WARPS;       // most beams a launch takes: a warp per beam
+constexpr int KMAX = WARPS;       // most query beams a cluster takes: a warp per beam
+constexpr int MAX_BEAMS = 32;     // slots an item has: one bit each in a slot mask
 constexpr int CHUNK_MAX = 256;    // (position, slot) rows staged at once
 constexpr int DQ = HD / CLUSTER;  // output channels each block merges and writes
 
@@ -80,36 +88,45 @@ __host__ __device__ inline int chunk_rows(int K, int cv) {
   return rows < CHUNK_MAX ? rows : CHUNK_MAX;
 }
 
-// Dynamic shared memory of one block, byte offsets: the ancestry (with room
-// for the 16-byte cover of an unaligned start), per position the number of
-// its first row and the mask of the slots read there, the block's list of
-// live rows, K and V rows of a chunk, the chunk's K x rows scores, its
-// weights as bf16 high and low parts [K][rows, padded to 16], then (int8)
-// its scales.
+// Dynamic shared memory of one block of a group of KG query beams, byte
+// offsets: the group's ancestry rows [KG, K, C] (with room for the 16-byte
+// cover of an unaligned start), per position the number of its first row and
+// the 32-bit mask of the slots read there, the block's list of live rows, K
+// and V rows of a chunk, the chunk's KG x rows scores, its weights as bf16
+// high and low parts [KG][rows, padded to 16], then (int8) its scales.
 struct Layout {
   size_t anc, first, slots, list, krow, vrow, sc, wh, wl, ksc, vsc, total;
 };
 
-__host__ __device__ inline Layout layout(int K, int C, int cv, bool int8) {
+__host__ __device__ inline Layout layout(int KG, int K, int C, int cv, bool int8) {
   const int chunk = chunk_rows(K, cv);
   const size_t row_bytes = HD * (int8 ? 1 : 2);
   Layout s;
   s.anc = 0;
-  s.first = align16(static_cast<size_t>(K) * K * C + 32);
+  s.first = align16(static_cast<size_t>(KG) * K * C + 32);
   s.slots = s.first + static_cast<size_t>(cv) * 4;
-  s.list = align16(s.slots + cv);
+  s.list = align16(s.slots + static_cast<size_t>(cv) * 4);
   s.krow = align16(s.list + static_cast<size_t>(rows_per_block(K, cv)) * 4);
   // K rows are read in whole tiles of 8 (the tail's stale rows feed only
   // scores that are never stored), so the buffer has a multiple of 8 rows.
   s.vrow = s.krow + ((chunk + 7) & ~7) * row_bytes;
   s.sc = s.vrow + chunk * row_bytes;
-  const size_t w_bytes = static_cast<size_t>(K) * ((chunk + 15) & ~15) * 2;
-  s.wh = align16(s.sc + static_cast<size_t>(K) * chunk * 4);
+  const size_t w_bytes = static_cast<size_t>(KG) * ((chunk + 15) & ~15) * 2;
+  s.wh = align16(s.sc + static_cast<size_t>(KG) * chunk * 4);
   s.wl = s.wh + w_bytes;
   s.ksc = s.wl + w_bytes;
   s.vsc = s.ksc + (int8 ? chunk * 4 : 0);
   s.total = s.vsc + (int8 ? chunk * 4 : 0);
   return s;
+}
+
+// Query beams a cluster takes: ceil(K / groups) for the fewest groups (at
+// least ceil(K / KMAX)) whose blocks fit the shared memory.
+__host__ inline int group_size(int K, int C, int cv, bool int8) {
+  for (int groups = (K + KMAX - 1) / KMAX;; ++groups) {
+    const int kg = (K + groups - 1) / groups;
+    if (kg == 1 || layout(kg, K, C, cv, int8).total <= MAX_DYNAMIC_SMEM) return kg;
+  }
 }
 
 // D = A B + D on the tensor cores, one warp: A 16 x 16 bf16 (row-major), B
@@ -135,7 +152,8 @@ beam_attention_kernel(const __nv_bfloat16* __restrict__ q,  // [B*K, H, HD]
                       const float* __restrict__ v_scale,
                       const bool* __restrict__ anc,         // [B, K, K, C]
                       __nv_bfloat16* __restrict__ out,      // [B*K, H, HD]
-                      int H, int C, int K, int cv, float qscale) {  // qscale: scale * log2(e)
+                      int H, int C, int K, int KG, int cv,
+                      float qscale) {  // qscale: scale * log2(e)
   constexpr int ROWB = HD * (INT8 ? 1 : 2);  // bytes of one K or V row
   constexpr int CH = ROWB / 16;              // 16-byte pieces of a row
   extern __shared__ __align__(16) unsigned char smem[];
@@ -143,17 +161,21 @@ beam_attention_kernel(const __nv_bfloat16* __restrict__ q,  // [B*K, H, HD]
   __shared__ float part_ml[CLUSTER][2][KMAX];  // pushed by block p: its row max and sum
   __shared__ float alpha_s[KMAX];              // a chunk's rescale factor per beam
   __shared__ int warp_total[WARPS];
-  __shared__ int any_bits;  // bit kd: beam kd reads some position below cv
+  __shared__ int any_bits;  // bit kd: the group's beam kd reads some position below cv
+  __shared__ int out_row0;  // b * K + k0, read back only at the end (no register holds it)
 
   split::cluster_arrive_relaxed();
   const int rank = static_cast<int>(blockIdx.x % CLUSTER);
-  const int bh = blockIdx.x / CLUSTER, b = bh / H, h = bh % H;
+  const int groups = (K + KG - 1) / KG;
+  const int bhg = blockIdx.x / CLUSTER, bh = bhg / groups, b = bh / H, h = bh % H;
+  const int k0 = (bhg % groups) * KG;  // the group's first query beam
+  const int kn = min(KG, K - k0);      // and its beams; kd below is k0 + the local index
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;  // tensor-core fragment coordinates
   const int chunk = chunk_rows(K, cv);
-  const Layout L = layout(K, C, cv, INT8);
+  const Layout L = layout(KG, K, C, cv, INT8);
   int* first = reinterpret_cast<int*>(smem + L.first);
-  unsigned char* slots_at = smem + L.slots;
+  uint32_t* slots_at = reinterpret_cast<uint32_t*>(smem + L.slots);
   uint32_t* list = reinterpret_cast<uint32_t*>(smem + L.list);
   unsigned char* krow = smem + L.krow;
   unsigned char* vrow = smem + L.vrow;
@@ -164,38 +186,43 @@ beam_attention_kernel(const __nv_bfloat16* __restrict__ q,  // [B*K, H, HD]
   float* ksc = reinterpret_cast<float*>(smem + L.ksc);
   float* vsc = reinterpret_cast<float*>(smem + L.vsc);
 
-  // 1. The item's ancestry, in 16-byte pieces from the aligned address at or
-  // below its start (its bytes keep their offset mod 16); and the queries as
-  // the A operand of S = Q K^T, bf16 as they come (beam g, zero for beams
-  // g >= K and rows 8..15), the score scale applied to S.
-  const uintptr_t anc_at = reinterpret_cast<uintptr_t>(anc) + static_cast<size_t>(b) * K * K * C;
+  // 1. The group's rows of the item's ancestry, in 16-byte pieces from the
+  // aligned address at or below their start (their bytes keep their offset
+  // mod 16); and the queries as the A operand of S = Q K^T, bf16 as they come
+  // (the group's beam g, zero for g >= kn and rows 8..15), the score scale
+  // applied to S.
+  const uintptr_t anc_at =
+      reinterpret_cast<uintptr_t>(anc) + (static_cast<size_t>(b) * K + k0) * K * C;
   const uintptr_t anc0 = anc_at & ~static_cast<uintptr_t>(15);
-  const int pieces = static_cast<int>((anc_at + static_cast<size_t>(K) * K * C - anc0 + 15) / 16);
+  const int pieces = static_cast<int>((anc_at + static_cast<size_t>(kn) * K * C - anc0 + 15) / 16);
   for (int i = tid; i < pieces; i += THREADS) {
     split::cp_async16(smem + L.anc + 16 * i, reinterpret_cast<const void*>(anc0 + 16 * i));
   }
-  const unsigned char* as = smem + L.anc + (anc_at - anc0);  // as[(kd * K + s) * C + c]
+  const unsigned char* as = smem + L.anc + (anc_at - anc0);  // as[(kd * K + s) * C + c], kd < kn
   uint32_t qa[HD / 16][2];  // k-step kk: {q[g][16 kk + 2t, + 1]}, {q[g][16 kk + 2t + 8, + 9]}
   {
     const uint32_t* qrow = reinterpret_cast<const uint32_t*>(
-        q + (static_cast<size_t>(b * K + min(g, K - 1)) * H + h) * HD);
+        q + (static_cast<size_t>(b * K + k0 + min(g, kn - 1)) * H + h) * HD);
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) {
-      qa[kk][0] = g < K ? qrow[8 * kk + t] : 0u;
-      qa[kk][1] = g < K ? qrow[8 * kk + 4 + t] : 0u;
+      qa[kk][0] = g < kn ? qrow[8 * kk + t] : 0u;
+      qa[kk][1] = g < kn ? qrow[8 * kk + 4 + t] : 0u;
     }
   }
-  if (tid == 0) any_bits = 0;
+  if (tid == 0) {
+    any_bits = 0;
+    out_row0 = b * K + k0;
+  }
   split::cp_async_commit();
   split::cp_async_wait<0>();
   __syncthreads();
 
-  // 2. A thread per position: the slots some beam reads there, and the beams
-  // that read anything below cv.
+  // 2. A thread per position: the slots some beam of the group reads there,
+  // and the group's beams that read anything below cv.
   uint32_t beams = 0;
   for (int c = tid; c < cv; c += THREADS) {
     uint32_t slots = 0;
-    for (int kd = 0; kd < K; ++kd) {
+    for (int kd = 0; kd < kn; ++kd) {
       uint32_t mine = 0;
       for (int s = 0; s < K; ++s) {
         mine |= static_cast<uint32_t>(as[(kd * K + s) * C + c] != 0) << s;
@@ -203,14 +230,14 @@ beam_attention_kernel(const __nv_bfloat16* __restrict__ q,  // [B*K, H, HD]
       slots |= mine;
       beams |= static_cast<uint32_t>(mine != 0) << kd;
     }
-    slots_at[c] = static_cast<unsigned char>(slots);
+    slots_at[c] = slots;
   }
   beams = __reduce_or_sync(0xffffffffu, beams);
   if (lane == 0 && beams) atomicOr(&any_bits, static_cast<int>(beams));
   __syncthreads();
   // Beams that read nothing get the uniform average: every row, equal scores.
-  const int full = ~any_bits & ((1 << K) - 1);
-  const uint32_t all_slots = (1u << K) - 1;
+  const int full = ~any_bits & ((1 << kn) - 1);
+  const uint32_t all_slots = K == 32 ? 0xffffffffu : (1u << K) - 1;
 
   // 3. Number the live rows, position-major then slot, every row if a beam
   // is full (first[c]: the number of position c's first row); this block
@@ -303,7 +330,7 @@ beam_attention_kernel(const __nv_bfloat16* __restrict__ q,  // [B*K, H, HD]
         }
         mma_bf16(d, qa[kk][0], 0u, qa[kk][1], 0u, b0, b1);
       }
-      if (g < K) {
+      if (g < kn) {
 #pragma unroll
         for (int u = 0; u < 2; ++u) {
           const int r = r0 + 2 * t + u;
@@ -322,7 +349,7 @@ beam_attention_kernel(const __nv_bfloat16* __restrict__ q,  // [B*K, H, HD]
     // (v_scale folded in) as a bf16 high part and the bf16 of the rest, so
     // the tensor cores' products keep 16 mantissa bits of each; rows past nr
     // up to the next 16 get zero weight.
-    if (warp < K) {
+    if (warp < kn) {
       const float* s_row = sc + warp * chunk;
       float cm = NEG;
       for (int r = lane; r < nr; r += 32) cm = fmaxf(cm, s_row[r]);
@@ -351,7 +378,7 @@ beam_attention_kernel(const __nv_bfloat16* __restrict__ q,  // [B*K, H, HD]
     // once for the weights' high parts and once for their low parts: warp w
     // owns channels [8 w, 8 w + 8) of every beam (B column g: channel ch),
     // 16 rows a step; lane (g, t) reads rows 2t, 2t + 1, 2t + 8, 2t + 9.
-    if (g < K) {
+    if (g < kn) {
       const float alpha = alpha_s[g];
       o[0] *= alpha;
       o[1] *= alpha;
@@ -366,13 +393,13 @@ beam_attention_kernel(const __nv_bfloat16* __restrict__ q,  // [B*K, H, HD]
         return reinterpret_cast<const uint16_t*>(vrow + r * ROWB)[ch];
       }
     };
-    const uint32_t* wh2 = reinterpret_cast<const uint32_t*>(wh + min(g, K - 1) * chunk16);
-    const uint32_t* wl2 = reinterpret_cast<const uint32_t*>(wl + min(g, K - 1) * chunk16);
+    const uint32_t* wh2 = reinterpret_cast<const uint32_t*>(wh + min(g, kn - 1) * chunk16);
+    const uint32_t* wl2 = reinterpret_cast<const uint32_t*>(wl + min(g, kn - 1) * chunk16);
     float o_lo[4] = {0.f, 0.f, 0.f, 0.f};  // the low parts' products: a second chain
     for (int r0 = 0; r0 < nr; r0 += 16) {
       const int i = r0 / 2 + t;  // bf16 pair of rows r0 + 2t, r0 + 2t + 1
-      const uint32_t ah0 = g < K ? wh2[i] : 0u, ah1 = g < K ? wh2[i + 4] : 0u;
-      const uint32_t al0 = g < K ? wl2[i] : 0u, al1 = g < K ? wl2[i + 4] : 0u;
+      const uint32_t ah0 = g < kn ? wh2[i] : 0u, ah1 = g < kn ? wh2[i + 4] : 0u;
+      const uint32_t al0 = g < kn ? wl2[i] : 0u, al1 = g < kn ? wl2[i + 4] : 0u;
       const uint32_t b0 = v_at(r0 + 2 * t) | v_at(r0 + 2 * t + 1) << 16;
       const uint32_t b1 = v_at(r0 + 2 * t + 8) | v_at(r0 + 2 * t + 9) << 16;
       mma_bf16(o, ah0, 0u, ah1, 0u, b0, b1);
@@ -386,23 +413,23 @@ beam_attention_kernel(const __nv_bfloat16* __restrict__ q,  // [B*K, H, HD]
   // 7. Push this block's partials to the blocks that own their channels,
   // then merge the ones pushed here and write channels [DQ rank, DQ rank + DQ).
   split::cluster_wait();  // every block of the cluster is running
-  if (g < K) {
+  if (g < kn) {
     const int d0 = 8 * warp + 2 * t;  // d0 and d0 + 1 have one owner: DQ is even
     float* dst = split::remote(&part_o[rank][g][d0 % DQ], d0 / DQ);
     dst[0] = o[0];
     dst[1] = o[1];
   }
-  if (warp < K && lane < CLUSTER) {
+  if (warp < kn && lane < CLUSTER) {
     float* ml = split::remote(&part_ml[rank][0][warp], lane);
     ml[0] = m_run;
     ml[KMAX] = l_run;
   }
   split::cluster_sync();
-  if (tid < K * DQ) {
+  if (tid < kn * DQ) {
     const int kd = tid / DQ, dd = tid % DQ;
     const float y = split::merge<CLUSTER>(&part_ml[0][0][kd], &part_ml[0][1][kd],
                                           &part_o[0][kd][dd], 2 * KMAX, KMAX * DQ);
-    out[(static_cast<size_t>(b * K + kd) * H + h) * HD + rank * DQ + dd] = __float2bfloat16(y);
+    out[(static_cast<size_t>(out_row0 + kd) * H + h) * HD + rank * DQ + dd] = __float2bfloat16(y);
   }
 }
 
@@ -415,15 +442,19 @@ int launch_beam(const void* q, const void* k, const void* v, const void* k_scale
       beam_attention_kernel<INT8>, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_DYNAMIC_SMEM);
   if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
   const uintptr_t align = reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v);
-  if (B < 1 || H < 1 || K < 1 || K > KMAX || cv < 1 || cv > C || C > 0xffff || align % 16) {
+  if (B < 1 || H < 1 || K < 1 || K > MAX_BEAMS || cv < 1 || cv > C || C > 0xffff ||
+      align % 16) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = layout(K, C, cv, INT8).total;
+  const int kg = group_size(K, C, cv, INT8);
+  const size_t smem = layout(kg, K, C, cv, INT8).total;
   if (smem > MAX_DYNAMIC_SMEM) return static_cast<int>(cudaErrorInvalidValue);
-  beam_attention_kernel<INT8><<<B * H * CLUSTER, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), k, v, static_cast<const float*>(k_scale),
-      static_cast<const float*>(v_scale), static_cast<const bool*>(anc),
-      static_cast<__nv_bfloat16*>(out), H, C, K, cv, scale * split::LOG2E);
+  const int groups = (K + kg - 1) / kg;
+  beam_attention_kernel<INT8>
+      <<<B * H * groups * CLUSTER, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const __nv_bfloat16*>(q), k, v, static_cast<const float*>(k_scale),
+          static_cast<const float*>(v_scale), static_cast<const bool*>(anc),
+          static_cast<__nv_bfloat16*>(out), H, C, K, kg, cv, scale * split::LOG2E);
   return static_cast<int>(cudaGetLastError());
 }
 

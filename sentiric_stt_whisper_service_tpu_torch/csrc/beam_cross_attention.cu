@@ -44,6 +44,13 @@
 // all four blocks hold the same weights. Pass 2 writes out[m, d] for the
 // block's own 16 d only: two d rows per warp, lanes across positions, no
 // reduction across blocks. One launch per call.
+//
+// Beam sizes above 8: each beam's query is independent of the others, so a
+// cluster takes a group of at most 8 of an item's Kt beams, the template's K
+// = ceil(Kt / groups) for groups = ceil(Kt / 8), and the launch has B x H x
+// groups clusters, each reading the slab for its group. The last group's rows
+// past Kt read the item's last query and are not stored. Up to 8 beams there
+// is one group and the kernel is as before.
 
 #include <cooperative_groups.h>
 
@@ -64,7 +71,8 @@ using slab::WARPS;
 constexpr int CLUSTER = 4;         // blocks per (item, head)
 constexpr int DQ = HD / CLUSTER;   // d rows per block
 constexpr int DW = DQ / WARPS;     // d rows per warp in pass 2
-constexpr int KMAX = 8;            // most beams a launch takes (a template instance each)
+constexpr int KMAX = 8;            // most beams a cluster takes (a template instance each)
+constexpr int MAX_BEAMS = 32;      // most beams an item has
 constexpr int MIN_BLOCKS = 3;      // an SM (<= 85 registers a thread): the beam
                                    // slice's 320 blocks in one wave on 132 SMs
 constexpr float LOG2E = 1.4426950408889634f;
@@ -141,13 +149,13 @@ __device__ __forceinline__ void wait_phase0(uint32_t bar) {
 
 template <int FORM, int K>
 __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS, MIN_BLOCKS)
-beam_cross_attention_kernel(const __nv_bfloat16* __restrict__ q,  // [BH, K, HD]
+beam_cross_attention_kernel(const __nv_bfloat16* __restrict__ q,  // [BH, Kt, HD]
                             const void* __restrict__ k,  // [BH, HD, row], row = F (F/2 int4)
                             const void* __restrict__ v,
                             const float* __restrict__ k_scale,  // [BH, F] (int8, int4)
                             const float* __restrict__ v_scale,
-                            __nv_bfloat16* __restrict__ out,  // [BH, K, HD]
-                            int F, float scale) {
+                            __nv_bfloat16* __restrict__ out,  // [BH, Kt, HD]
+                            int F, int Kt, float scale) {
   constexpr int ESZ = FORM == kBf16 ? 2 : 1;
   // [K, V quarters][DQ][row] slab elements, [K][Fs] fp32 scores (partial
   // sums, then full scores, then softmax weights), then k_scale and v_scale
@@ -158,10 +166,13 @@ beam_cross_attention_kernel(const __nv_bfloat16* __restrict__ q,  // [BH, K, HD]
   __shared__ float stat[2][K];      // this quarter's row max (log2 units) and sum
   __shared__ float fac[CLUSTER][K];  // each quarter's weight factor per row
   __shared__ __align__(8) uint64_t bar;
+  __shared__ int out_row0, out_rows;  // the group's first output row and its rows below Kt
 
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
-  const int bh = blockIdx.x / CLUSTER;
+  const int groups = (Kt + K - 1) / K;
+  const int bh = blockIdx.x / CLUSTER / groups;
+  const int m0 = blockIdx.x / CLUSTER % groups * K;  // the group's first beam
   const int row = FORM == kInt4 ? F / 2 : F;
   const uint32_t quarter = static_cast<uint32_t>(DQ * row * ESZ);
   const unsigned char* kq = smem;
@@ -174,6 +185,9 @@ beam_cross_attention_kernel(const __nv_bfloat16* __restrict__ q,  // [BH, K, HD]
 
   const uint32_t bar_a = smem_u32(&bar);
   if (tid == 0) {
+    // read back only at the end: no register holds them through the passes
+    out_row0 = bh * Kt + m0;
+    out_rows = min(K, Kt - m0);
     asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar_a) : "memory");
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     const size_t off = (static_cast<size_t>(bh) * HD + rank * DQ) * row * ESZ;
@@ -185,7 +199,8 @@ beam_cross_attention_kernel(const __nv_bfloat16* __restrict__ q,  // [BH, K, HD]
   }
   for (int i = tid; i < K * DQ; i += THREADS) {
     const int m = i / DQ, dd = i % DQ;
-    qs[m][dd] = __bfloat162float(q[(static_cast<size_t>(bh) * K + m) * HD + rank * DQ + dd]);
+    const int mq = min(m0 + m, Kt - 1);
+    qs[m][dd] = __bfloat162float(q[(static_cast<size_t>(bh) * Kt + mq) * HD + rank * DQ + dd]);
   }
   if constexpr (FORM != kBf16) {
 #pragma unroll 4
@@ -379,58 +394,63 @@ beam_cross_attention_kernel(const __nv_bfloat16* __restrict__ q,  // [BH, K, HD]
       }
     }
   }
+  const int row0 = out_row0, rows = out_rows;
 #pragma unroll
   for (int m = 0; m < K; ++m) {
 #pragma unroll
     for (int r = 0; r < DW; ++r) {
       float a = acc[r][m];
       for (int off = 16; off > 0; off >>= 1) a += __shfl_xor_sync(0xffffffffu, a, off);
-      if (lane == 0) {
-        out[(static_cast<size_t>(bh) * K + m) * HD + rank * DQ + d0 + r] = __float2bfloat16(a);
+      if (lane == 0 && m < rows) {
+        out[(static_cast<size_t>(row0) + m) * HD + rank * DQ + d0 + r] = __float2bfloat16(a);
       }
     }
   }
 }
 
-// Launch over B*H clusters of four blocks; each block takes its K and V
-// quarters, K padded rows of fp32 scores and (int8, int4) the two scale rows
-// of dynamic shared memory, opted in once per instance.
+// Launch over B*H*groups clusters of four blocks; each block takes its K and
+// V quarters, K padded rows of fp32 scores and (int8, int4) the two scale
+// rows of dynamic shared memory, opted in once per instance.
 template <int FORM, int K>
 int launch_k(const void* q, const void* k, const void* v, const void* k_scale,
-             const void* v_scale, void* out, int BH, int F, float scale, size_t smem,
+             const void* v_scale, void* out, int BH, int F, int Kt, float scale, size_t smem,
              cudaStream_t stream) {
   static const cudaError_t opt_in =
       cudaFuncSetAttribute(beam_cross_attention_kernel<FORM, K>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_DYNAMIC_SMEM);
   if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
-  beam_cross_attention_kernel<FORM, K><<<BH * CLUSTER, THREADS, smem, stream>>>(
+  const int groups = (Kt + K - 1) / K;
+  beam_cross_attention_kernel<FORM, K><<<BH * groups * CLUSTER, THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), k, v, static_cast<const float*>(k_scale),
-      static_cast<const float*>(v_scale), static_cast<__nv_bfloat16*>(out), F, scale);
+      static_cast<const float*>(v_scale), static_cast<__nv_bfloat16*>(out), F, Kt, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int FORM>
 int launch(const void* q, const void* k, const void* v, const void* k_scale, const void* v_scale,
-           void* out, int BH, int F, int K, float scale, void* stream) {
+           void* out, int BH, int F, int Kt, float scale, void* stream) {
+  if (Kt < 1 || Kt > MAX_BEAMS) return static_cast<int>(cudaErrorInvalidValue);
+  const int groups = (Kt + KMAX - 1) / KMAX;
+  const int K = (Kt + groups - 1) / groups;  // beams a cluster takes
   const size_t row = FORM == kInt4 ? F / 2 : F;
   const size_t Fs = (F + 3) & ~3;
   const size_t smem = 2 * DQ * row * (FORM == kBf16 ? 2 : 1) +
                       (K * Fs + (FORM == kBf16 ? 0 : 2 * F)) * 4;
   const uintptr_t align = reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v);
-  if (BH < 1 || F < 1 || K < 1 || K > KMAX || (FORM == kInt4 && F % 2) || align % 16 ||
+  if (BH < 1 || F < 1 || (FORM == kInt4 && F % 2) || align % 16 ||
       smem > MAX_DYNAMIC_SMEM) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto st = static_cast<cudaStream_t>(stream);
   switch (K) {
-    case 1: return launch_k<FORM, 1>(q, k, v, k_scale, v_scale, out, BH, F, scale, smem, st);
-    case 2: return launch_k<FORM, 2>(q, k, v, k_scale, v_scale, out, BH, F, scale, smem, st);
-    case 3: return launch_k<FORM, 3>(q, k, v, k_scale, v_scale, out, BH, F, scale, smem, st);
-    case 4: return launch_k<FORM, 4>(q, k, v, k_scale, v_scale, out, BH, F, scale, smem, st);
-    case 5: return launch_k<FORM, 5>(q, k, v, k_scale, v_scale, out, BH, F, scale, smem, st);
-    case 6: return launch_k<FORM, 6>(q, k, v, k_scale, v_scale, out, BH, F, scale, smem, st);
-    case 7: return launch_k<FORM, 7>(q, k, v, k_scale, v_scale, out, BH, F, scale, smem, st);
-    default: return launch_k<FORM, 8>(q, k, v, k_scale, v_scale, out, BH, F, scale, smem, st);
+    case 1: return launch_k<FORM, 1>(q, k, v, k_scale, v_scale, out, BH, F, Kt, scale, smem, st);
+    case 2: return launch_k<FORM, 2>(q, k, v, k_scale, v_scale, out, BH, F, Kt, scale, smem, st);
+    case 3: return launch_k<FORM, 3>(q, k, v, k_scale, v_scale, out, BH, F, Kt, scale, smem, st);
+    case 4: return launch_k<FORM, 4>(q, k, v, k_scale, v_scale, out, BH, F, Kt, scale, smem, st);
+    case 5: return launch_k<FORM, 5>(q, k, v, k_scale, v_scale, out, BH, F, Kt, scale, smem, st);
+    case 6: return launch_k<FORM, 6>(q, k, v, k_scale, v_scale, out, BH, F, Kt, scale, smem, st);
+    case 7: return launch_k<FORM, 7>(q, k, v, k_scale, v_scale, out, BH, F, Kt, scale, smem, st);
+    default: return launch_k<FORM, 8>(q, k, v, k_scale, v_scale, out, BH, F, Kt, scale, smem, st);
   }
 }
 

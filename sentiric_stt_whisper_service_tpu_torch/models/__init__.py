@@ -1,10 +1,13 @@
 from .beam import decode_window_beam, topk_small  # noqa: F401
+from .graphs import DecodeGraphs  # noqa: F401
 from .sampling import (  # noqa: F401
     DecodeResult,
     TokenIds,
     apply_timestamp_rules,
     build_suppress_mask,
     decode_window,
+    decode_window_best_of,
+    detect_language,
 )
 from .whisper import (  # noqa: F401
     Whisper,

@@ -1,0 +1,230 @@
+"""CUDA graphs of the decode steps: the port's counterpart of the JAX
+package's ``jax.jit`` over its window loops (``models/sampling.py``
+``_decode_window_impl`` / ``_decode_chunk_impl``, ``models/beam.py``
+``_decode_window_beam_impl`` / ``_beam_chunk_impl``).
+
+A window's loop is a :class:`StepLoop`: its state and its per-request
+inputs (cross slab, suppression row, temperature) in tensors, and one step
+function that reads them and updates the state in place, with the position
+and the loop's flags on the device. On the CPU, or on CUDA when the caller
+asks for eager decoding, the loop calls the step over the caller's own
+tensors. Otherwise :class:`DecodeGraphs`, which the caller creates and
+keeps, holds one loop per shape class with static copies of the inputs,
+and one captured graph of the step per read bound (the counterpart of the
+JAX package's ``lax.switch`` over read buckets): a request copies its
+inputs into the class's buffers, its prefill writes the state there, and
+the host replays.
+
+* **Capture.** An eager warm-up of every bound on a side stream first
+  builds the kernel library and runs the kernels' shared-memory opt-ins and
+  cuBLAS's set-up, none of which a capture may do. Then each bound's step
+  is captured into one memory pool shared by every graph of the cache:
+  their replays are serial on one stream and every graph writes its results
+  into the static buffers, so the temporaries that one graph leaves behind
+  are dead before another runs.
+* **No fallback.** A capture or a replay that fails raises; nothing carries
+  on eagerly.
+* **Launch counts.** ``kernels.LAUNCHES`` counts on the host, where a replay
+  calls no wrapper: each graph keeps the counts its capture added (taken
+  back out, since a capture launches nothing) and adds them at every replay.
+* **Random draws.** A sampled step with the caller's generator draws, in
+  the graph, from a generator of the class registered with its graphs: the
+  caller's state is copied into it before the replays and back after, so
+  the caller's generator advances as an eager decode would advance it.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import time
+from typing import Callable, Optional
+
+import torch
+
+from .. import kernels
+
+
+def read_bound(pos: int, bounds) -> int:
+    """The read bound of a step at ``pos``: the first of the ascending
+    ``bounds`` above it, else the last (the whole slab)."""
+    return next((b for b in bounds if pos < b), bounds[-1])
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _tree_copy(dst, src) -> None:
+    if isinstance(dst, dict):
+        for k, v in dst.items():
+            _tree_copy(v, src[k])
+    elif dst is not src:
+        dst.copy_(src)
+
+
+def _tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    return 0
+
+
+class StepLoop:
+    """A window loop: ``state`` (a dataclass of tensors), ``inputs`` (a dict
+    of tensors, nested one level for the cross slab) and ``step(state,
+    bound)``. ``advance(bound)`` runs one step: eagerly, or by replaying the
+    graph captured for ``bound``."""
+
+    def __init__(self, state, inputs: dict, step: Callable,
+                 generator: Optional[torch.Generator] = None):
+        self.state, self.inputs, self.step = state, inputs, step
+        self.generator = generator  # the class's own, registered with its graphs
+        self.graphs: Optional[dict] = None  # bound -> (CUDAGraph, launches a replay)
+        self.capture_s = 0.0
+        self.static_bytes = 0
+        self.pool_bytes = 0
+
+    @property
+    def graphed(self) -> bool:
+        return self.graphs is not None
+
+    def load(self, inputs: dict) -> None:
+        """Copy a request's inputs into the static buffers (no copy when the
+        loop runs over the caller's own tensors)."""
+        _tree_copy(self.inputs, inputs)
+
+    def advance(self, bound: int) -> None:
+        if self.graphs is None:
+            self.step(self.state, bound)
+            return
+        graph, launches = self.graphs[bound]
+        graph.replay()
+        for name, n in launches.items():
+            kernels.LAUNCHES[name] += n
+
+    @contextlib.contextmanager
+    def drawing_from(self, generator: Optional[torch.Generator]):
+        """Replays draw from ``generator``'s state, which advances as an
+        eager decode's would (no-op for an eager loop or no generator)."""
+        if self.generator is None or generator is None:
+            yield
+            return
+        self.generator.set_state(generator.get_state())
+        try:
+            yield
+        finally:
+            generator.set_state(self.generator.get_state())
+
+
+def _capture(loop: StepLoop, bounds, pool) -> int:
+    """Warm up and capture every bound's step; returns the bytes the
+    captures added to the device memory reserved (the pool's growth)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for bound in bounds:
+            loop.step(loop.state, bound)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # as each capture does first: the warm-up's blocks
+    reserved = torch.cuda.memory_reserved()
+    graphs = {}
+    for bound in bounds:
+        graph = torch.cuda.CUDAGraph()
+        if loop.generator is not None:
+            graph.register_generator_state(loop.generator)
+        before = dict(kernels.LAUNCHES)
+        try:
+            with torch.cuda.graph(graph, pool=pool):
+                loop.step(loop.state, bound)
+        finally:
+            added = {k: kernels.LAUNCHES[k] - n for k, n in before.items()}
+            kernels.LAUNCHES.update(before)
+        graphs[bound] = (graph, {k: n for k, n in added.items() if n})
+    loop.graphs = graphs
+    return torch.cuda.memory_reserved() - reserved
+
+
+class DecodeGraphs:
+    """The caller's cache of captured decode steps, one :class:`StepLoop` per
+    shape class (config and weights, rows, beams, cache length, read bounds,
+    slab form, self dtype, greedy or sampled, rules), all graphs in one
+    memory pool. Keep one for the life of a model: a class is captured once,
+    at its first request."""
+
+    def __init__(self):
+        self._loops: dict = {}
+        self._pool = None
+
+    def loop(self, key, make: Callable, inputs: dict, bounds, device: torch.device,
+             own_generator: bool) -> StepLoop:
+        """The class under ``key`` with ``inputs`` loaded, made and captured
+        first if it is new: ``make(inputs, generator)`` returns (state,
+        step) over the tensors it is given."""
+        loop = self._loops.get(key)
+        if loop is None:
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            static = _tree_map(torch.empty_like, inputs)
+            static_bytes = _tree_bytes(static)
+            generator = torch.Generator(device=device) if own_generator else None
+            state, step = make(static, generator)
+            loop = StepLoop(state, static, step, generator)
+            loop.load(inputs)  # before the warm-up, which reads them
+            loop.pool_bytes = _capture(loop, bounds, self._pool)
+            loop.capture_s = time.perf_counter() - t0
+            loop.static_bytes = static_bytes + _tree_bytes(vars(state))
+            self._loops[key] = loop
+        else:
+            loop.load(inputs)
+        return loop
+
+    def stats(self) -> list[dict]:
+        """Per class: its graphs, capture seconds (eager warm-up included),
+        its static buffers' bytes and the bytes its captures added to the
+        shared pool."""
+        return [dict(key=key, graphs=len(loop.graphs), capture_s=loop.capture_s,
+                     static_bytes=loop.static_bytes, pool_bytes=loop.pool_bytes)
+                for key, loop in self._loops.items()]
+
+
+def window_loop(device: torch.device, graph: bool, graphs: Optional[DecodeGraphs], key,
+                make: Callable, inputs: dict, bounds, generator) -> StepLoop:
+    """The loop that decodes one window on ``device``: eager over the
+    caller's tensors on the CPU or when ``graph`` is false, else the class of
+    ``key`` in ``graphs`` (a cache made for this call when none is given)."""
+    if device.type != "cuda" or not graph:
+        state, step = make(inputs, generator)
+        return StepLoop(state, inputs, step)
+    graphs = graphs if graphs is not None else DecodeGraphs()
+    return graphs.loop(key, make, inputs, bounds, device, own_generator=generator is not None)
+
+
+def run_window(loop: StepLoop, start: int, hard_stop: int, bounds, finished: Callable,
+               should_abort=None, chunk: int = 32) -> bool:
+    """The host side of a window's loop, from position ``start`` up to
+    ``hard_stop``: ``should_abort`` is polled before each chunk of ``chunk``
+    steps (the JAX package's abortable path), and ``finished()``, which reads
+    the device, after it. The host keeps the position itself: each step
+    advances it by one on the device too, until the step's own flag stops
+    it, so a replay past the end changes nothing that the result reads.
+    An eager loop checks ``finished()`` after every step as well. Returns
+    False if aborted."""
+    pos = start
+    while pos < hard_stop:
+        if should_abort is not None and should_abort():
+            return False
+        until = min(pos + max(1, chunk), hard_stop)
+        while pos < until:
+            loop.advance(read_bound(pos, bounds))
+            pos += 1
+            if not loop.graphed and finished():
+                break
+        if finished():
+            break
+    return True

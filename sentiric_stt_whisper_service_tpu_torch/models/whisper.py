@@ -571,35 +571,65 @@ def decoder_apply(
     return tied_logits(x, dec), kv_cache
 
 
+def pos_index(pos, device) -> torch.Tensor:
+    """A shared decode position as a ``[1]`` int64 tensor: a tensor (0-d or
+    ``[1]``, e.g. the loop's device scalar) as it is, an int made into one on
+    ``device``."""
+    if isinstance(pos, torch.Tensor):
+        return pos.reshape(1).to(torch.int64)
+    return torch.tensor([int(pos)], dtype=torch.int64, device=device)
+
+
+_INT_OF_WIDTH = {1: torch.uint8, 2: torch.int16, 4: torch.int32}
+
+
+def _write_rows(cache: torch.Tensor, pos1: torch.Tensor, rows: torch.Tensor) -> None:
+    """``cache[:, :, pos] = rows`` in place for a device ``pos`` ([1] int64):
+    ``index_copy_`` along the position axis, on an integer view of the
+    storage's width so that every storage type (fp8 too) takes it.
+    cache [S, H, C, hd]; rows [S, H, hd]."""
+    it = _INT_OF_WIDTH[cache.element_size()]
+    cache.view(it).index_copy_(2, pos1, rows.to(cache.dtype)[:, :, None].view(it))
+
+
+def _read_len(cache_len: int, c_valid: int) -> int:
+    return c_valid if 0 < c_valid < cache_len else cache_len
+
+
 def decoder_step(
     cfg: WhisperConfig,
     model: Whisper,
     tokens: torch.Tensor,  # [S] int: one new token per row
-    pos: int,  # shared position of every row
+    pos,  # shared position of every row: a 0-d or [1] int64 tensor, or an int
     kv_cache: dict,  # [L, S, H, cache_len, hd], written in place at pos
     xa_kv: dict,  # [L, S, H, hd, 1500] KF (+ scales when quantized)
+    c_valid: int = 0,  # read self-cache positions [0, c_valid) only; 0 = all
 ):
-    """One decode step for rows that advance in lockstep. Returns
-    (logits [S, V] fp32, kv_cache)."""
+    """One decode step for rows that advance in lockstep. ``pos`` is read on
+    the device (embedding row, self mask, cache write), so a CUDA graph of
+    the step replays at whatever position the tensor holds. Exact for any
+    ``c_valid`` > ``pos`` (later rows are masked), as the JAX package's
+    ``decoder_step(c_valid=)``. Returns (logits [S, V] fp32, kv_cache)."""
     dec = model.decoder
     S = tokens.shape[0]
     h = cfg.n_text_head
     d = cfg.n_text_state
     hd = d // h
     scale = hd**-0.25
+    pos1 = pos_index(pos, tokens.device)
 
-    x = (embed_tokens(dec, tokens) + dec.pos_emb[pos])[:, None, :].to(cfg.dtype)  # [S,1,d]
-    cache_len = kv_cache["k"].shape[3]
-    self_mask = (torch.arange(cache_len, device=x.device) <= pos)[None, None, None, :]
+    x = (embed_tokens(dec, tokens) + dec.pos_emb.index_select(0, pos1))[:, None, :].to(cfg.dtype)
+    cv = _read_len(kv_cache["k"].shape[3], c_valid)
+    self_mask = (torch.arange(cv, device=x.device) <= pos1)[None, None, None, :]
 
     for li, layer in enumerate(dec.blocks):
         y = layer_norm(x, layer.attn_ln)
         qp, kp, vp = _self_qkv(y, layer.attn)
         k_cache, v_cache = kv_cache["k"][li], kv_cache["v"][li]
-        k_cache[:, :, pos] = kp.reshape(S, h, hd).to(k_cache.dtype)
-        v_cache[:, :, pos] = vp.reshape(S, h, hd).to(v_cache.dtype)
+        _write_rows(k_cache, pos1, kp.reshape(S, h, hd))
+        _write_rows(v_cache, pos1, vp.reshape(S, h, hd))
         q = qp.reshape(S, h, 1, hd)
-        sa = _attend(q * (scale * scale), k_cache, v_cache, self_mask)
+        sa = _attend(q * (scale * scale), k_cache[:, :, :cv], v_cache[:, :, :cv], self_mask)
         x = x + dense(sa.reshape(S, 1, d).to(x.dtype), layer.attn.o)
 
         y = layer_norm(x, layer.cross_attn_ln)
@@ -616,7 +646,7 @@ def decoder_step_beam(
     cfg: WhisperConfig,
     model: Whisper,
     tokens: torch.Tensor,  # [B*K] int: one new token per beam
-    pos: int,  # shared position (beams decode in lockstep)
+    pos,  # shared position (beams decode in lockstep): an int64 tensor or an int
     kv_cache: dict,  # [L, B*K, H, C, hd] slot caches, slot s of item b at row b*K+s
     xa_kv: dict,  # [L, B, H, hd, 1500] KF, shared by the K beams of an item
     anc: torch.Tensor,  # [B, K, K, C] bool: beam kd reads position c from slot ks
@@ -624,12 +654,12 @@ def decoder_step_beam(
     c_valid: int = 0,  # read self-cache positions [0, c_valid) only; 0 = all
 ):
     """One beam-search decode step with no reordering of the KV cache: each
-    beam appends its K/V row into its own slot at ``pos`` (in place), and
-    parent adoption lives in the ancestry mask. Self-attention reads every
-    slot of the item through the mask (K5); cross-attention serves the K
-    beams of an item from one read of the untiled slab (K6). Exact for any
-    ``c_valid`` > ``pos`` (later rows are masked). Returns (logits
-    [B*K, V] fp32, kv_cache)."""
+    beam appends its K/V row into its own slot at ``pos`` (in place, ``pos``
+    read on the device as in ``decoder_step``), and parent adoption lives in
+    the ancestry mask. Self-attention reads every slot of the item through
+    the mask (K5); cross-attention serves the K beams of an item from one
+    read of the untiled slab (K6). Exact for any ``c_valid`` > ``pos``
+    (later rows are masked). Returns (logits [B*K, V] fp32, kv_cache)."""
     dec = model.decoder
     S = tokens.shape[0]
     K = beam_size
@@ -638,14 +668,15 @@ def decoder_step_beam(
     d = cfg.n_text_state
     hd = d // h
     scale = hd**-0.25
+    pos1 = pos_index(pos, tokens.device)
 
-    x = (embed_tokens(dec, tokens) + dec.pos_emb[pos])[:, None, :].to(cfg.dtype)  # [S,1,d]
+    x = (embed_tokens(dec, tokens) + dec.pos_emb.index_select(0, pos1))[:, None, :].to(cfg.dtype)
     for li, layer in enumerate(dec.blocks):
         y = layer_norm(x, layer.attn_ln)
         qp, kp, vp = _self_qkv(y, layer.attn)
         k_cache, v_cache = kv_cache["k"][li], kv_cache["v"][li]
-        k_cache[:, :, pos] = kp.reshape(S, h, hd).to(k_cache.dtype)
-        v_cache[:, :, pos] = vp.reshape(S, h, hd).to(v_cache.dtype)
+        _write_rows(k_cache, pos1, kp.reshape(S, h, hd))
+        _write_rows(v_cache, pos1, vp.reshape(S, h, hd))
         sa = beam_attention(qp.reshape(S, h, hd).contiguous(), k_cache, v_cache, anc, K,
                             scale=scale * scale, c_valid=c_valid)
         x = x + dense(sa.reshape(S, 1, d).to(x.dtype), layer.attn.o)

@@ -22,7 +22,11 @@ read as it is. Its numerics are those of the JAX package's
 ``models/whisper._attend_xa``, the function that package's beam step calls.
 
 A CPU tensor takes the plain version (after unpacking, for int4). On CUDA the
-kernels take bf16 queries, hd = 64 and at most 8 beams, and return bf16.
+kernels take bf16 queries, hd = 64 and at most ``MAX_BEAMS`` = 32 beams, and
+return bf16. A cluster serves at most 8 query beams: above 8 the beams of an
+item split into groups of ``beam_groups`` in the same launch, each group's
+cluster reading all K slots (K5) or the whole slab (K6) for its own beams,
+which is exact, since no beam's output reads another beam's query.
 Both run a cluster of four blocks per (item, head), and both copy 16-byte
 pieces of their K and V into shared memory, so those must start on 16-byte
 boundaries. K5's blocks split the live (position, slot) rows below
@@ -45,7 +49,8 @@ from .. import kernels
 from .quant import unpack_nibbles_i8
 
 HEAD_DIM = 64
-MAX_BEAMS = 8
+MAX_BEAMS = 32  # slots an item may have: K5's slot masks are 32 bits
+GROUP_BEAMS = 8  # query beams a cluster takes: a warp each in K5, an unrolled row each in K6
 NEG = -1e30  # the JAX package's mask value
 _MAX_SMEM_BYTES = 200 * 1024  # csrc/slab_attention.cuh MAX_DYNAMIC_SMEM
 _CLUSTER = 4  # blocks per (item, head): K5 a quarter of the live rows each, K6 a d quarter each
@@ -57,21 +62,41 @@ def read_len(C: int, c_valid: int) -> int:
     return c_valid if 0 < c_valid < C else C
 
 
-def _beam_smem_bytes(K: int, C: int, cv: int, itemsize: int) -> int:
-    """Dynamic shared memory of one K5 block (csrc/beam_attention.cu
-    ``layout``): the item's ancestry, a row number and a slot mask per
-    position, the block's list of live rows (at most a quarter of K x cv,
-    rounded up), one chunk's K rows (in tiles of 8) and V rows, K scores a
-    row, K weights a row as bf16 high and low parts (rows padded to 16), and
-    (int8) two scales a row."""
+def beam_groups(K: int) -> int:
+    """Query beams a K6 cluster takes: K split into ceil(K / 8) groups of
+    equal size but for the last (csrc/beam_cross_attention.cu ``launch``)."""
+    groups = -(-K // GROUP_BEAMS)
+    return -(-K // groups)
+
+
+def _beam_smem_bytes(KG: int, K: int, C: int, cv: int, itemsize: int) -> int:
+    """Dynamic shared memory of one K5 block serving KG of K query beams
+    (csrc/beam_attention.cu ``layout``): the group's rows of the ancestry, a
+    row number and a 32-bit slot mask per position, the block's list of live
+    rows (at most a quarter of K x cv, rounded up), one chunk's K rows (in
+    tiles of 8) and V rows, KG scores a row, KG weights a row as bf16 high
+    and low parts (rows padded to 16), and (int8) two scales a row."""
     rows = -(-K * cv // _CLUSTER)
     chunk = min(_K5_CHUNK, rows)
     align16 = lambda x: -(-x // 16) * 16  # noqa: E731
-    at = align16(align16(align16(K * K * C + 32) + 5 * cv) + 4 * rows)
+    at = align16(align16(align16(KG * K * C + 32) + 8 * cv) + 4 * rows)
     at += -(-chunk // 8) * 8 * HEAD_DIM * itemsize  # K rows, whole tiles of 8
-    at = align16(at + chunk * (HEAD_DIM * itemsize + 4 * K))  # V rows, scores
-    at += 2 * K * -(-chunk // 16) * 16 * 2  # weights: bf16 high and low parts
+    at = align16(at + chunk * (HEAD_DIM * itemsize + 4 * KG))  # V rows, scores
+    at += 2 * KG * -(-chunk // 16) * 16 * 2  # weights: bf16 high and low parts
     return at + (8 * chunk if itemsize == 1 else 0)
+
+
+def beam_attention_groups(K: int, C: int, cv: int, itemsize: int) -> tuple[int, int]:
+    """(query beams a K5 cluster takes, its block's shared memory): the
+    fewest groups, at least ceil(K / 8), whose blocks fit
+    (csrc/beam_attention.cu ``group_size``)."""
+    groups = -(-K // GROUP_BEAMS)
+    while True:
+        kg = -(-K // groups)
+        smem = _beam_smem_bytes(kg, K, C, cv, itemsize)
+        if kg == 1 or smem <= _MAX_SMEM_BYTES:
+            return kg, smem
+        groups += 1
 
 
 def beam_attention_reference(q, k, v, anc, beam_size: int, scale: float = 1.0,
@@ -137,7 +162,7 @@ def beam_attention(
         raise ValueError(f"{name}: scale shapes {tuple(k_scale.shape)}, "
                          f"{tuple(v_scale.shape)} != {(BK, H, C)}")
     cv = read_len(C, c_valid)
-    smem = _beam_smem_bytes(K, C, cv, k.element_size())
+    _, smem = beam_attention_groups(K, C, cv, k.element_size())
     if smem > _MAX_SMEM_BYTES or C > 0xFFFF:
         raise ValueError(f"{name}: K = {K} beams over a {C}-row cache need {smem} > "
                          f"{_MAX_SMEM_BYTES} bytes of shared memory")
@@ -180,10 +205,10 @@ def _check_cross(name, q, k, v, F, scales=()):
     if hd != HEAD_DIM or tuple(k.shape[:3]) != (B, H, hd) or v.shape != k.shape:
         raise ValueError(f"{name}: need q [B, H, K, 64] and k, v [B, H, 64, *], got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    # per block: the K and V quarters of the slab, K fp32 score rows padded to
-    # a multiple of 4, and the two scale rows
+    # per block: the K and V quarters of the slab, a fp32 score row padded to
+    # a multiple of 4 for each beam of its group, and the two scale rows
     smem = 2 * (HEAD_DIM // _CLUSTER) * k.shape[-1] * k.element_size() + 4 * (
-        K * -(-F // 4) * 4 + len(scales) * F)
+        beam_groups(max(K, 1)) * -(-F // 4) * 4 + len(scales) * F)
     if not 1 <= K <= MAX_BEAMS or smem > _MAX_SMEM_BYTES:
         raise ValueError(f"{name}: K = {K} beams over F = {F} positions: need 1 <= K <= "
                          f"{MAX_BEAMS} and {smem} <= {_MAX_SMEM_BYTES} bytes of shared memory")

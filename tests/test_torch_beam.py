@@ -10,7 +10,11 @@ weights carried across by ``models/params.from_jax_numpy``:
     K = 5, B = 2, token for token, for each cross slab and self-cache storage,
     and once with EOT favoured so that hypotheses are banked and the search
     stops early;
-  * ``early_stop`` changing nothing, and beam 1 equal to greedy.
+  * ``early_stop`` changing nothing, and beam 1 equal to greedy;
+  * the window loop's modes against the JAX package's: abort polls and
+    chunks, ``cache_buckets=False``, a carried prompt whose decode crosses
+    the 128-row read bucket, ``prefill_len``, and beam 9 (two groups of
+    query beams in the card's kernels).
 
 Tolerances: logits 1e-4 (fp32, the same products summed in another order,
 as tests/test_torch_whisper.py); tokens and lengths exact; no-speech
@@ -30,6 +34,7 @@ from sentiric_stt_whisper_service_tpu.ops import compute_log_mel as ref_log_mel
 from sentiric_stt_whisper_service_tpu.ops import quant as ref_quant
 from sentiric_stt_whisper_service_tpu.tokenizer import fallback_tokenizer as ref_tokenizer
 from sentiric_stt_whisper_service_tpu_torch.models import (
+    DecodeResult,
     TokenIds,
     build_suppress_mask,
     decode_window,
@@ -70,12 +75,23 @@ def _params(params, bits):
     return ref_quant.fuse_decoder_qkv(ref_quant.quantize_params(params)) if bits else params
 
 
-def _reference(params, audio, bits, self_dtype, eot_bias=0.0, **kw):
+def _prompt(tok, carried=0):
+    """The prompt: ``carried`` earlier tokens after sot_prev, if any, then
+    the sot sequence. Returns (tokens, sot_index)."""
+    sot = list(tok.sot_sequence("en"))
+    if not carried:
+        return sot, 0
+    rng = np.random.default_rng(carried)
+    return [tok.special.sot_prev] + list(rng.integers(300, 5000, carried)) + sot, carried + 1
+
+
+def _reference(params, audio, bits, self_dtype, eot_bias=0.0, beam_size=K, carried=0,
+               budget=BUDGET, **kw):
     tok = ref_tokenizer(CFG_R.n_vocab)
     ids = ref_sampling.TokenIds.from_tokenizer(tok)
     sup = ref_sampling.build_suppress_mask(CFG_R.n_vocab, ids, tok.non_speech_tokens)
     sup[ids.eot] += eot_bias
-    sot = tok.sot_sequence("en")
+    sot, sot_index = _prompt(tok, carried)
     tinit = np.full((2, CFG_R.n_text_ctx), ids.eot, np.int32)
     tinit[:, : len(sot)] = sot
     params = _params(params, bits)
@@ -83,30 +99,31 @@ def _reference(params, audio, bits, self_dtype, eot_bias=0.0, **kw):
     xa_kv = (ref.encode_xa_kv_q(CFG_R, params, mel, bits) if bits
              else ref.encode_xa_kv(CFG_R, params, mel))
     return ref_beam.decode_window_beam(
-        CFG_R, params, xa_kv, jnp.asarray(tinit), len(sot), 0, ids, jnp.asarray(sup),
-        beam_size=K, max_len=len(sot) + BUDGET, self_dtype=self_dtype, **kw)
+        CFG_R, params, xa_kv, jnp.asarray(tinit), len(sot), sot_index, ids, jnp.asarray(sup),
+        beam_size=beam_size, max_len=len(sot) + budget, self_dtype=self_dtype, **kw)
 
 
-def _port_inputs(params, audio, bits, eot_bias=0.0):
+def _port_inputs(params, audio, bits, eot_bias=0.0, carried=0):
     model = from_jax_numpy(jax.tree.map(np.asarray, _params(params, bits)), CFG, "cpu")
     tok = fallback_tokenizer(CFG.n_vocab)
     ids = TokenIds.from_tokenizer(tok)
     sup = build_suppress_mask(CFG.n_vocab, ids, tok.non_speech_tokens)
     sup[ids.eot] += eot_bias
-    sot = tok.sot_sequence("en")
+    sot, sot_index = _prompt(tok, carried)
     tinit = torch.full((2, CFG.n_text_ctx), ids.eot, dtype=torch.int64)
     tinit[:, : len(sot)] = torch.tensor(sot)
     with torch.inference_mode():
         mel = compute_log_mel(torch.from_numpy(audio), n_mels=CFG.n_mels, dtype=CFG.dtype)
         xa_kv = encode_xa_kv_q(CFG, model, mel, bits) if bits else encode_xa_kv(CFG, model, mel)
-    return model, xa_kv, tinit, len(sot), ids, torch.from_numpy(sup)
+    return model, xa_kv, tinit, len(sot), ids, torch.from_numpy(sup), sot_index
 
 
-def _port(inputs, self_dtype, beam_size=K, **kw):
-    model, xa_kv, tinit, sb, ids, sup = inputs
+def _port(inputs, self_dtype, beam_size=K, budget=BUDGET, **kw):
+    model, xa_kv, tinit, sb, ids, sup, sot_index = inputs
     with torch.inference_mode():
-        return decode_window_beam(CFG, model, xa_kv, tinit, sb, 0, ids, sup, beam_size=beam_size,
-                                  max_len=sb + BUDGET, self_dtype=self_dtype, **kw)
+        return decode_window_beam(CFG, model, xa_kv, tinit, sb, sot_index, ids, sup,
+                                  beam_size=beam_size, max_len=sb + budget,
+                                  self_dtype=self_dtype, **kw)
 
 
 def _assert_same(got, want):
@@ -207,7 +224,7 @@ def test_early_stop_changes_nothing(eot_inputs, monkeypatch):
 
 
 def test_beam_of_one_is_greedy(eot_inputs):
-    model, xa_kv, tinit, sb, ids, sup = eot_inputs[BANKED]
+    model, xa_kv, tinit, sb, ids, sup, _ = eot_inputs[BANKED]
     got = _port(eot_inputs[BANKED], None, beam_size=1)
     with torch.inference_mode():
         want = decode_window(CFG, model, xa_kv, tinit, sb, 0, ids, sup, max_len=sb + BUDGET)
@@ -215,3 +232,66 @@ def test_beam_of_one_is_greedy(eot_inputs):
     for b, n in enumerate(want.lengths.tolist()):
         assert torch.equal(got.tokens[b, :n], want.tokens[b, :n])
     torch.testing.assert_close(got.no_speech_probs, want.no_speech_probs)
+
+
+def _polls(fire_after=None):
+    """A ``should_abort`` that counts its polls and fires on poll
+    ``fire_after`` + 1 (never, without it)."""
+    polls = []
+
+    def should_abort():
+        polls.append(1)
+        return fire_after is not None and len(polls) > fire_after
+
+    return should_abort, polls
+
+
+@pytest.mark.parametrize("fire_after", [None, 2], ids=["never", "after_2"])
+def test_abort_polls_match_jax(weights_and_audio, eot_inputs, fire_after):
+    """Chunks of 8 steps polled between, as the JAX package's chunked path:
+    a callback that never fires changes nothing; one that fires returns
+    None after the same polls."""
+    params, audio = weights_and_audio
+    mine, mine_polls = _polls(fire_after)
+    theirs, their_polls = _polls(fire_after)
+    want = _reference(params, audio, 4, jnp.bfloat16, BANKED, should_abort=theirs,
+                      abort_chunk=8)
+    got = _port(eot_inputs[BANKED], torch.bfloat16, should_abort=mine, abort_chunk=8)
+    assert len(mine_polls) == len(their_polls) >= 3
+    if fire_after is None:
+        _assert_same(got, want)
+        plain = _port(eot_inputs[BANKED], torch.bfloat16)
+        for name in DecodeResult._fields:
+            assert torch.equal(getattr(got, name), getattr(plain, name)), name
+    else:
+        assert got is None and want is None
+
+
+def test_whole_slab_reads_and_prefill_len(weights_and_audio, eot_inputs):
+    """``cache_buckets=False`` and a prefill pinned wider than the prompt's
+    bucket, each as the JAX package decodes them."""
+    params, audio = weights_and_audio
+    want = _reference(params, audio, 4, jnp.bfloat16, BANKED, cache_buckets=False,
+                      prefill_len=16)
+    got = _port(eot_inputs[BANKED], torch.bfloat16, cache_buckets=False, prefill_len=16)
+    _assert_same(got, want)
+
+
+def test_carried_prompt_crosses_the_read_bucket(weights_and_audio):
+    """A 126-token prompt (sot_prev, 122 carried tokens, the sot sequence)
+    prefilled at its 128 bucket: the decode crosses from the 128-row read
+    bucket to the whole 160-row slab at position 128."""
+    params, audio = weights_and_audio
+    want = _reference(params, audio, 8, jnp.bfloat16, carried=122, budget=12)
+    got = _port(_port_inputs(params, audio, 8, carried=122), torch.bfloat16, budget=12)
+    _assert_same(got, want)
+    assert int(got.lengths.min()) > 128
+
+
+def test_beam_9_token_exact(weights_and_audio):
+    """Nine beams (on the card, K5 and K6 serve them in two groups; here
+    their plain versions), token for token with the JAX package."""
+    params, audio = weights_and_audio
+    want = _reference(params, audio, 4, jnp.bfloat16, BANKED, beam_size=9, budget=16)
+    got = _port(_port_inputs(params, audio, 4, BANKED), torch.bfloat16, beam_size=9, budget=16)
+    _assert_same(got, want)

@@ -12,6 +12,8 @@ Pallas kernels round their matrix-unit operands to bf16 for bf16 inputs and
 for int8 slabs (queries and softmax weights), so against those the JAX
 package's own bf16 tolerance applies (2e-2, tests/test_beam_attention.py)."""
 
+import itertools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -29,9 +31,13 @@ from sentiric_stt_whisper_service_tpu.ops.beam_attention import (
     beam_cross_attention as ref_cross,
 )
 from sentiric_stt_whisper_service_tpu_torch.ops.beam_attention import (
+    GROUP_BEAMS,
+    MAX_BEAMS,
     beam_attention,
+    beam_attention_groups,
     beam_cross_attention,
     beam_cross_attention_i4,
+    beam_groups,
 )
 from sentiric_stt_whisper_service_tpu_torch.ops.quant import unpack_nibbles_i8
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
@@ -226,14 +232,16 @@ NEG = -1e30
 
 
 def k5_cluster(q, k, v, anc, K_, scale, c_valid=0, k_scale=None, v_scale=None, blocks=4,
-               chunk=256):
+               chunk=256, group=None):
     """K5's split of the rows over its cluster and the merge of the blocks'
     softmax partials (csrc/beam_attention.cu), in fp32 (the kernel forms its
     products on the tensor cores; their rounding is what the card tests'
-    tolerance covers). A beam with no entry below ``c_valid`` is "full":
-    every row counts for it, with score 0.
-    The live (position, slot) rows (some beam reads them, or any beam is
-    full) are numbered position-major; block r of ``blocks`` takes the rows
+    tolerance covers). A cluster serves ``group`` query beams (default: as
+    the wrapper groups them, ``beam_attention_groups``), every slot of the
+    item. A beam with no entry below ``c_valid`` is "full": every row counts
+    for it, with score 0.
+    The live (position, slot) rows (some beam of the group reads them, or
+    one of them is full) are numbered position-major; block r of ``blocks`` takes the rows
     numbered [T r / blocks, T (r + 1) / blocks) of T. Each block runs an
     online softmax per destination beam over its rows, ``chunk`` rows at a
     time, in log2 units (log2(e) folded into the query scale), masked
@@ -242,12 +250,14 @@ def k5_cluster(q, k, v, anc, K_, scale, c_valid=0, k_scale=None, v_scale=None, b
     BK, H_, C_, hd = k.shape
     B_ = BK // K_
     cv = c_valid if 0 < c_valid < C_ else C_
+    group = group or beam_attention_groups(K_, C_, cv, 1 if k.dtype == torch.int8 else 2)[0]
     qs = q.float() * (scale * LOG2E)
     k, v = k.float(), v.float()
     out = torch.empty(BK, H_, hd)
-    for b in range(B_):
-        a = anc[b, :, :, :cv]  # [Kd, Ks, cv]
-        full = ~a.reshape(K_, -1).any(-1)
+    for b, k0 in itertools.product(range(B_), range(0, K_, group)):
+        kn = min(group, K_ - k0)
+        a = anc[b, k0:k0 + kn, :, :cv]  # [Kd of the group, Ks, cv]
+        full = ~a.reshape(kn, -1).any(-1)
         c_all, s_all = (x.reshape(-1) for x in torch.meshgrid(
             torch.arange(cv), torch.arange(K_), indexing="ij"))  # position-major
         live = full.any() | a[:, s_all, c_all].any(0)
@@ -258,13 +268,13 @@ def k5_cluster(q, k, v, anc, K_, scale, c_valid=0, k_scale=None, v_scale=None, b
             for r in range(blocks):
                 lo, hi = T * r // blocks, T * (r + 1) // blocks
                 s_i, c_i = s_all[lo:hi], c_all[lo:hi]
-                m = torch.full((K_,), NEG)
-                l_ = torch.zeros(K_)
-                o = torch.zeros(K_, hd)
+                m = torch.full((kn,), NEG)
+                l_ = torch.zeros(kn)
+                o = torch.zeros(kn, hd)
                 for i0 in range(0, len(s_i), chunk):
                     s_c, c_c = s_i[i0:i0 + chunk], c_i[i0:i0 + chunk]
                     rows = b * K_ + s_c
-                    sc = qs[b * K_:(b + 1) * K_, h] @ k[rows, h, c_c].T  # [Kd, rows]
+                    sc = qs[b * K_ + k0:b * K_ + k0 + kn, h] @ k[rows, h, c_c].T  # [Kd, rows]
                     if k_scale is not None:
                         sc = sc * k_scale[rows, h, c_c]
                     sc = torch.where(a[:, s_c, c_c], sc, torch.tensor(NEG))
@@ -282,7 +292,7 @@ def k5_cluster(q, k, v, anc, K_, scale, c_valid=0, k_scale=None, v_scale=None, b
             f = [torch.exp2(p[0] - big) for p in parts]
             den = sum(p[1] * fp for p, fp in zip(parts, f))
             num = sum(p[2] * fp[:, None] for p, fp in zip(parts, f))
-            out[b * K_:(b + 1) * K_, h] = num / den[:, None]
+            out[b * K_ + k0:b * K_ + k0 + kn, h] = num / den[:, None]
     return out
 
 
@@ -312,6 +322,18 @@ def k5_case(seed, K_, C_, c_valid):
 @pytest.mark.parametrize("K_", [1, 2, 5, 8])
 @pytest.mark.parametrize("c_valid", [1, 37, 128, 129, 160])
 def test_k5_cluster_arithmetic_matches_pallas(form, K_, c_valid):
+    _k5_cluster_case(form, K_, c_valid)
+
+
+@pytest.mark.parametrize("form", ["bf16", "int8"])
+@pytest.mark.parametrize("K_,c_valid", [(9, 129), (16, 37)])
+def test_k5_cluster_groups_match_pallas(form, K_, c_valid):
+    """Above 8 beams: two clusters per (item, head), each serving a group of
+    the query beams over all K slots."""
+    _k5_cluster_case(form, K_, c_valid)
+
+
+def _k5_cluster_case(form, K_, c_valid):
     C_ = 160
     q, k, v, anc = k5_case(K_ * 1000 + c_valid, K_, C_, c_valid)
     if form == "bf16":
@@ -359,3 +381,29 @@ def test_k5_chunks_carry_the_online_softmax(chunk):
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=FP32)
     plain = ref_beam_plain(*(jnp.asarray(x) for x in (q, k, v, anc)), K_, scale=SCALE)
     np.testing.assert_allclose(got.numpy(), np.asarray(plain), atol=FP32)
+
+
+@pytest.mark.parametrize("K_", [9, 16])
+def test_k5_groups_of_query_beams_change_nothing(K_):
+    """Above 8 beams a cluster serves a group of them, numbering only the
+    rows its own beams read: each beam's output equals that of one cluster
+    serving every beam."""
+    q, k, v, anc = k5_case(K_, K_, 160, 160)
+    args = [torch.from_numpy(x) for x in (q, k, v, anc)]
+    grouped = k5_cluster(*args, K_, SCALE, 160)
+    whole = k5_cluster(*args, K_, SCALE, 160, group=K_)
+    np.testing.assert_allclose(grouped.numpy(), whole.numpy(), atol=FP32)
+
+
+@pytest.mark.parametrize("itemsize", [1, 2])
+def test_beam_groups_fit_shared_memory(itemsize):
+    """Every beam size the kernels take, over the longest self cache (448
+    rows, read whole or in a 128-row bucket): K5's group of query beams
+    fits its 200 KB of shared memory, K6's is at most 8, and up to 8 beams
+    both are one group of all the beams, the launch they had before."""
+    for K_, cv in itertools.product(range(1, MAX_BEAMS + 1), (128, 448)):
+        kg, smem = beam_attention_groups(K_, 448, cv, itemsize)
+        assert kg <= GROUP_BEAMS and smem <= 200 * 1024, (K_, cv, kg, smem)
+        assert beam_groups(K_) <= GROUP_BEAMS
+        if K_ <= GROUP_BEAMS:
+            assert kg == beam_groups(K_) == K_

@@ -7,8 +7,9 @@ without the suite's conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
-Small shapes with the slices' widths (hd = 64, 20 heads, 5 beams, ragged
-lengths and read bounds); ``chip_smoke.py`` checks the full slice shapes.
+Small shapes with the slices' widths (hd = 64, 20 heads, 5 beams, and 9 and
+16 for K5's and K6's groups of query beams, ragged lengths and read bounds);
+``chip_smoke.py`` checks the full slice shapes.
 Tolerances: the JAX package's 3e-4 for the fp32 log-mel; for bf16 outputs,
 two bf16 steps at the largest plain output (fp32 sums in another order, then
 bf16 rounding), four for K6, whose plain version also rounds its softmax
@@ -202,11 +203,12 @@ def _beam_case(dev, form, B, K, C, c_valid, g, masked_beam=True):
 
 
 @pytest.mark.parametrize("form", ["bf16", "int8"])
-@pytest.mark.parametrize("K", [1, 2, 5, 8])
+@pytest.mark.parametrize("K", [1, 2, 5, 8, 9, 16])
 @pytest.mark.parametrize("c_valid", [1, 37, 128, 129, 160])
 def test_beam_attention_ragged(dev, form, K, c_valid):
     """K5's position split over its cluster at ragged read bounds, with
-    blocks that hold no live row and a beam that reads nothing."""
+    blocks that hold no live row and a beam that reads nothing; 9 and 16
+    beams in two groups of query beams."""
     args, kw = _beam_case(dev, form, 2, K, 160, c_valid, torch.Generator().manual_seed(K))
     before = kernels.LAUNCHES["beam_attention"]
     got = ba.beam_attention(*args, **kw)
@@ -215,17 +217,19 @@ def test_beam_attention_ragged(dev, form, K, c_valid):
 
 
 @pytest.mark.parametrize("form", ["bf16", "int8"])
-def test_beam_attention_chunks(dev, form):
-    """A 448-row cache read whole by 8 beams, every row live: 896 candidate
+@pytest.mark.parametrize("K", [8, 32])
+def test_beam_attention_chunks(dev, form, K):
+    """A 448-row cache read whole by K beams, every row live: 896 (3,584 at
+    K = 32, in groups of query beams that fit the shared memory) candidate
     rows a block, staged in chunks of 256 with the softmax carried across."""
-    args, kw = _beam_case(dev, form, 1, 8, 448, 0, torch.Generator().manual_seed(3),
+    args, kw = _beam_case(dev, form, 1, K, 448, 0, torch.Generator().manual_seed(3),
                           masked_beam=False)
     args = (*args[:3], torch.ones_like(args[3]), args[4])
     _close_bf16(ba.beam_attention(*args, **kw), ba.beam_attention_reference(*args, **kw))
 
 
 @pytest.mark.parametrize("form", ["bf16", "int8", "int4"])
-@pytest.mark.parametrize("K", [1, 5, 8])
+@pytest.mark.parametrize("K", [1, 5, 8, 9, 16])
 @pytest.mark.parametrize("F,q_scale", [(1500, 1.0), (22, 1.0), (1500, 30.0)])
 def test_beam_cross_attention(dev, form, K, F, q_scale):
     """F = 22: a quarter row of 11 carrier bytes; q_scale 30: peaked
@@ -264,9 +268,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     q = torch.randn(1, 2, 10, 64, device=dev).bfloat16().transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention(q, q, q)
-    q = torch.randn(1, 20, 9, 64, device=dev).bfloat16()  # 9 beams
+    q = torch.randn(1, 20, ba.MAX_BEAMS + 1, 64, device=dev).bfloat16()  # 33 beams
     k = torch.randn(1, 20, 64, 100, device=dev).bfloat16()
-    with pytest.raises(ValueError, match="K = 9"):
+    with pytest.raises(ValueError, match="K = 33"):
         ba.beam_cross_attention(q, k, k)
     q = torch.randn(1, 20, 5, 64, device=dev).bfloat16()
     buf = torch.randn(20 * 64 * 100 + 1, device=dev).bfloat16()
