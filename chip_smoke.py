@@ -52,14 +52,41 @@ JAX package) and fails with a non-zero exit on the first phase that fails:
    parents and tokens (K5, K6) agrees with a teacher-forced prefill of every
    hypothesis (plain PyTorch).
 
+6. the engine: ``runtime/engine.SttEngine`` over the same large-v3 model
+   (int4 compute: int4 cross slab, fp8 self cache; ``device="auto"``; VAD,
+   diarization, ``language="auto"`` and token timestamps on; the gates
+   relaxed so that random weights keep their segments), the user's entry
+   point ``transcribe_pcm16`` on WAVs written and parsed by the port:
+   voiced synthetic clips of 5, 12, 21 and 30 s, an 8 kHz clip (the
+   resample path), a 50 s clip through the sequential long-form loop and
+   through the batched one, and a silent clip (the VAD gate); once with
+   ``beam_size=1`` (path ``engine_greedy``: K1, K2, K4) and once with the
+   default ``beam_size=5`` (path ``engine_beam``: K1, K2, K5, K6), each
+   after ``warmup()``, then one request with the default gates, whose
+   ladder must climb above t = 0 (best-of sampling on the card). It prints
+   each request's wall, audio seconds, segments, tokens and stage split
+   (language detection, encode, decode, alignment pass, prosody with
+   clustering), audio seconds per second over each set, the warm-up and
+   the engine's graph classes with their static buffers and pool. It
+   checks that every kernel of each path launched, that segment times are
+   non-negative with starts in order, that token times lie inside the
+   request's audio and in order within a segment, that the silent clip
+   gives the one ``language="unknown"`` result, and that one window's
+   token ids from the engine (graphed) equal an eager decode
+   (``graph=False``) of the same window by phase 4's functions. (The
+   reference's long-form loop closes an unterminated trailing segment at
+   the window's audio end even when its opening timestamp lies later, so
+   t1 < t0 can occur with random weights, in the JAX package too; such
+   segments are counted, not refused.)
+
 ``--kernels-of DIR`` runs phases 1–3 only, with the package of the checkout
 in ``DIR``, and ends with the checks as one JSON list; ``--compare DIR`` runs
 that for ``DIR`` and for this checkout in turns (DIR, this, this, DIR) and
 prints the times side by side: the way to hold a change against its parent
 commit on one card.
 
-Each path (greedy int4, greedy int8, greedy bf16, beam 5) has its own launch
-counts, set to 0 just before its (first) run and read just after it; each
+Each path (greedy int4, greedy int8, greedy bf16, beam 5, engine greedy,
+engine beam) has its own launch counts, set to 0 just before its (first) run and read just after it; each
 run must launch every kernel of its path. A graph replay adds the launches
 its capture counted. ``--profile`` runs phase 3, then replaces phases 4–5
 with a breakdown of both slices (the greedy one with the int4 and the int8
@@ -843,6 +870,10 @@ def run(torch, np, profile: bool = False, kernels_only: bool = False) -> int:
     drift_check(f"beam steps vs teacher-forced hypotheses ({BEAM_STEP_CHECK} steps)",
                 torch.stack(want, 1), torch.stack(got, 1), torch)
 
+    print(f"== 6. engine: large-v3, int4 compute, VAD, diarization, language auto, token "
+          f"timestamps [{card}]")
+    engine_phase(torch, np, model, paths, card)
+
     kernels_json = []
     for name, (src, replaces, path) in SOURCES.items():
         mine = [c for c in checks if c["kernel"] == name]
@@ -863,6 +894,201 @@ def run(torch, np, profile: bool = False, kernels_only: bool = False) -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def voiced_like(rng, seconds: float, sr: int = 16000):
+    """Harmonics of a gliding 110–195 Hz pitch under a 1.5 Hz syllable
+    envelope with pauses, plus a little noise: passes the energy VAD."""
+    import numpy as np
+
+    n = int(seconds * sr)
+    t = np.arange(n) / sr
+    f0 = 110 + 60 * rng.uniform() + 25 * np.sin(2 * np.pi * 0.7 * t + rng.uniform(0, 6.28))
+    phase = 2 * np.pi * np.cumsum(f0) / sr
+    x = sum(np.sin(k * phase) / k for k in range(1, 16))
+    env = np.clip(np.sin(2 * np.pi * 1.5 * t + rng.uniform(0, 6.28)) + 0.6, 0, 1)
+    env *= np.sin(2 * np.pi * 0.2 * t + rng.uniform(0, 6.28)) > -0.6  # pauses
+    x = x * env + 0.02 * rng.standard_normal(n)
+    return (0.3 * x / (np.abs(x).max() + 1e-9)).astype(np.float32)
+
+
+ENGINE_TOKENS_CHECK = 32  # the capped request held against eager decoding
+
+
+def engine_phase(torch, np, model, paths, card) -> None:
+    """Phase 6: the engine on the card (see the module docstring)."""
+    import dataclasses
+
+    from sentiric_stt_whisper_service_tpu_torch import kernels
+    from sentiric_stt_whisper_service_tpu_torch.audio import parse_wav_robust, write_wav
+    from sentiric_stt_whisper_service_tpu_torch.config import Settings
+    from sentiric_stt_whisper_service_tpu_torch.models import decode_window, encode_xa_kv_q
+    from sentiric_stt_whisper_service_tpu_torch.models.sampling import prompt_bucket
+    from sentiric_stt_whisper_service_tpu_torch.ops import compute_log_mel, pad_or_trim
+    from sentiric_stt_whisper_service_tpu_torch.runtime import engine as eng_mod
+    from sentiric_stt_whisper_service_tpu_torch.runtime import (
+        PerformanceMetrics,
+        RequestOptions,
+        SttEngine,
+    )
+
+    relaxed = dict(quality_gate="off", logprob_threshold=-1e9, no_speech_threshold=1.0,
+                   min_segment_avg_prob=0.0)
+    base = Settings(device="auto", compute_type="int4", enable_vad=True,
+                    enable_diarization=True, language="auto", no_timestamps=False,
+                    model_filename="ggml-large-v3.bin")
+    require(base.beam_size == BEAM, "the default beam size moved")
+
+    rng = np.random.default_rng(SEED + 6)
+    clips = [(f"{s:.0f} s", voiced_like(rng, s), 16000, {}) for s in DURATIONS_S]
+    clips.append(("10 s at 8 kHz", voiced_like(rng, 10.0, sr=8000), 8000, {}))
+    long_clip = voiced_like(rng, 50.0)
+    clips.append(("50 s sequential", long_clip, 16000, dict(condition_on_previous_text=True)))
+    clips.append(("50 s batched", long_clip, 16000, dict(condition_on_previous_text=False)))
+    clips.append(("3 s silence", np.zeros(48000, np.float32), 16000, {}))
+    requests = []  # (label, pcm16, rate, options): WAVs through the port's writer and parser
+    for label, x, rate, opts in clips:
+        buf = io.BytesIO()
+        write_wav(buf, x, sample_rate=rate)
+        d = parse_wav_robust(buf.getvalue())
+        require(d.is_valid and d.sample_rate == rate, f"{label}: WAV round trip failed")
+        requests.append((label, d.pcm_data, rate, opts))
+
+    def run_set(path, engine, beam):
+        print(f"  [{path}] warmup(): {engine.warmup():.2f} s [{card}]")
+        kernels.reset_launch_counts()
+        total_audio = total_wall = 0.0
+        for label, pcm, rate, opts in requests:
+            m = PerformanceMetrics()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = engine.transcribe_pcm16(pcm, rate, RequestOptions(beam_size=beam, **opts), m)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            seconds = len(pcm) / rate
+            total_audio += seconds
+            total_wall += wall
+            stages = ", ".join(f"{k} {v:.1f}" for k, v in m.stages_ms.items())
+            n_tok = sum(r.token_count for r in res)
+            print(f"  [{path}] {label}: wall {wall:.3f} s, {seconds:.1f} audio-s, "
+                  f"{len(res)} segment(s), {n_tok} tokens; stages ms: {stages or 'none'}; "
+                  f"language {res[0].language if res else '-'} [{card}]")
+            check_results(path, label, res, seconds, silent="silence" in label)
+        counts = dict(kernels.LAUNCHES)
+        paths[path] = counts
+        print(f"  [{path}] {len(requests)} requests, {total_audio:.1f} audio-s in "
+              f"{total_wall:.2f} s: {total_audio / total_wall:.2f} audio-s/s [{card}]; "
+              f"launches {counts}")
+        need = ("log_mel", "flash_attention") + (
+            ("beam_attention", "beam_cross_attention") if beam > 1 else ("decode_attention_i4",))
+        for name in need:
+            require(counts[name] > 0, f"{path}: kernel {name} was not launched")
+        for st in engine.graphs.stats():
+            key = st["key"]
+            print(f"  [{path}] graph class {key[0]} rows {key[2]}"
+                  f"{f' beams {key[3]}' if key[0] == 'beam' else ''}: {st['graphs']} graph(s), "
+                  f"captured in {st['capture_s']:.2f} s, static buffers "
+                  f"{st['static_bytes'] / 2**20:.1f} MiB, pool grown by "
+                  f"{st['pool_bytes'] / 2**20:.1f} MiB [{card}]")
+        held = sum(st["static_bytes"] for st in engine.graphs.stats())
+        print(f"  [{path}] graph classes hold {held / 2**20:.1f} MiB of static buffers; device "
+              f"memory allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB, reserved "
+              f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB")
+
+    def check_results(path, label, res, seconds, silent):
+        if silent:
+            require(len(res) == 1 and res[0].language == "unknown" and res[0].text == "",
+                    f"{path} {label}: the VAD gate did not give the one 'unknown' result")
+            return
+        require(bool(res), f"{path} {label}: no segment under relaxed gates")
+        end_cs = int(round(seconds * 100))
+        late = 0
+        for a, b in zip(res, res[1:]):
+            require(b.t0 >= a.t0, f"{path} {label}: segment starts out of order")
+        for r in res:
+            require(r.t0 >= 0 and r.t1 >= 0, f"{path} {label}: negative segment time")
+            late += r.t1 < r.t0
+            times = [(k.t0, k.t1) for k in r.tokens]
+            require(all(0 <= t0 <= t1 <= end_cs + 1 for t0, t1 in times),
+                    f"{path} {label}: a token time lies outside the audio: {times[:8]}")
+            require(all(b[0] >= a[0] for a, b in zip(times, times[1:])),
+                    f"{path} {label}: token times out of order within a segment")
+        if late:
+            print(f"    ({late} trailing segment(s) opened past the audio's end: t1 < t0, "
+                  "as in the reference)")
+
+    eng_greedy = SttEngine(dataclasses.replace(base, beam_size=1, **relaxed),
+                           model_name="large-v3", params=model)
+    require(eng_greedy.device.type == "cuda" and eng_greedy.xa_bits == 4
+            and eng_greedy.self_dtype == torch.float8_e4m3fn, "engine: not the int4 card setup")
+    run_set("engine_greedy", eng_greedy, 1)
+
+    # One window's token ids from the engine (graphed, a capped request)
+    # against phase 4's functions decoding the same window eagerly.
+    seen = []
+    decode_one = eng_greedy._decode_one
+
+    def recording(*args, **kw):
+        res = decode_one(*args, **kw)
+        seen.append((args, kw, res))
+        return res
+
+    eng_greedy._decode_one = recording
+    label, pcm, _, _ = requests[3]  # the 30 s clip: window 0 is all of it
+    eng_greedy.transcribe_pcm16(pcm, 16000, RequestOptions(
+        beam_size=1, max_decode_tokens=ENGINE_TOKENS_CHECK))
+    del eng_greedy._decode_one
+    (_, init_tokens, sb, sot_index, temp, _, _), kw, res = seen[0]  # window 0
+    cfg = model.cfg
+    sample_len = kw["sample_len"]
+    prefill = max(prompt_bucket(sb), eng_mod.TICK_PREFILL)
+    dev = torch.device("cuda")
+    audio = torch.from_numpy(pad_or_trim(pcm.astype(np.float32) / 32768.0)[None]).to(dev)
+    tinit = torch.full((1, cfg.n_text_ctx), eng_greedy.ids.eot, dtype=torch.int64, device=dev)
+    tinit[0, :sb] = torch.tensor(init_tokens, device=dev)
+    with torch.inference_mode():
+        xa = encode_xa_kv_q(cfg, model, compute_log_mel(audio, n_mels=cfg.n_mels,
+                                                        dtype=cfg.dtype), 4)
+        eager = decode_window(cfg, model, xa, tinit, sb, sot_index, eng_greedy.ids,
+                              eng_greedy.suppress_mask, 0.0, None,
+                              max_len=min(cfg.n_text_ctx, prefill + sample_len),
+                              prefill_len=prefill, self_dtype=torch.float8_e4m3fn,
+                              sample_cap=sample_len, graph=False)
+    n = int(res.lengths[0])
+    require(temp == 0.0 and n == int(eager.lengths[0])
+            and np.array_equal(res.tokens[0, :n], eager.tokens[0, :n].cpu().numpy()),
+            "engine: graphed token ids differ from eager decoding of the same window")
+    print(f"  [engine_greedy] {label} window, {n - sb} tokens (cap {sample_len}): the engine's "
+          f"graphed token ids equal an eager decode_window (graph=False) of phase 4's encode")
+
+    eng_beam = SttEngine(dataclasses.replace(base, **relaxed), model_name="large-v3",
+                         params=model)
+    run_set("engine_beam", eng_beam, BEAM)
+
+    # The default gates: random weights fail the logprob gate, so the
+    # ladder climbs from beam 5 at t = 0 to best-of 5 sampling above it.
+    eng_default = SttEngine(base, model_name="large-v3", params=model)
+    rungs = []
+    decode_one = eng_default._decode_one
+
+    def ladder(*args, **kw):
+        rungs.append(args[4])
+        return decode_one(*args, **kw)
+
+    eng_default._decode_one = ladder
+    label, pcm, rate, _ = requests[0]
+    m = PerformanceMetrics()
+    t = time.perf_counter()
+    res = eng_default.transcribe_pcm16(pcm, rate, RequestOptions(), m)
+    wall = time.perf_counter() - t
+    print(f"  [engine default gates] {label}: wall {wall:.3f} s, rungs t = "
+          f"{', '.join(f'{x:.1f}' for x in rungs)}, {len(res)} segment(s) kept; stages ms: "
+          f"{', '.join(f'{k} {v:.1f}' for k, v in m.stages_ms.items())} [{card}]")
+    require(any(x > 0.0 for x in rungs), "engine: the ladder never left t = 0")
+    for st in eng_default.graphs.stats():
+        print(f"  [engine default gates] graph class {st['key'][0]} rows {st['key'][2]}: "
+              f"captured in {st['capture_s']:.2f} s, static buffers "
+              f"{st['static_bytes'] / 2**20:.1f} MiB")
 
 
 def profile_slices(torch, cfg, model, audio, timed, card) -> None:

@@ -1,4 +1,5 @@
-"""Carry the JAX package's parameters across into this package's modules.
+"""Carry the JAX package's parameters across into this package's modules,
+and back.
 
 ``from_jax_numpy`` takes the JAX package's parameter pytree with its leaves
 already converted to numpy (``jax.tree.map(np.asarray, params)``, done by
@@ -6,7 +7,9 @@ the caller so this package never imports JAX) and returns a ``Whisper``
 module holding the same values. Each stacked ``[L, ...]`` leaf is unstacked
 into its layer's submodule. Quantized and fused leaves map as well
 (``w_q``/``scale``, the fused ``attn.qkv``, ``tok_emb_q``/``tok_emb_scale``),
-so a test can quantize on either side and compare.
+so a test can quantize on either side and compare. ``to_numpy_tree`` is
+the inverse for an unquantized module: the same pytree layout with numpy
+leaves (the checkpoint writer's input, and what tests compare).
 """
 
 from __future__ import annotations
@@ -83,3 +86,50 @@ def from_jax_numpy(tree: dict, cfg: WhisperConfig, device, dtype=None) -> Whispe
         fill(block, _layer(dec["blocks"], i))
     fill(m_dec, {"ln": dec["ln"]})
     return model
+
+
+
+def stack_layers(per_layer: list[dict]) -> dict:
+    """Per-layer trees → one tree with each leaf stacked on a leading axis."""
+    first = per_layer[0]
+    if isinstance(first, dict):
+        return {k: stack_layers([p[k] for p in per_layer]) for k in first}
+    return np.stack(per_layer)
+
+
+def to_numpy_tree(model: Whisper) -> dict:
+    """An unquantized, unfused ``Whisper`` → the JAX package's parameter
+    pytree with fp32 numpy leaves, each layer's leaves stacked on a leading
+    ``[L]`` axis."""
+
+    def leaf(t: torch.Tensor) -> np.ndarray:
+        return t.detach().float().cpu().numpy()
+
+    def tree(module: torch.nn.Module) -> dict:
+        out = {}
+        for name, child in module.named_children():
+            if isinstance(child, Dense):
+                out[name] = {"w": leaf(child.w)} | ({"b": leaf(child.b)} if child.b is not None
+                                                    else {})
+            elif isinstance(child, LayerNorm):
+                out[name] = {"g": leaf(child.g), "b": leaf(child.b)}
+            else:
+                out[name] = tree(child)
+        return out
+
+    enc, dec = model.encoder, model.decoder
+    return {
+        "encoder": {
+            "conv1": {"w": leaf(enc.conv1_w), "b": leaf(enc.conv1_b)},
+            "conv2": {"w": leaf(enc.conv2_w), "b": leaf(enc.conv2_b)},
+            "pos": leaf(enc.pos),
+            "blocks": stack_layers([tree(b) for b in enc.blocks]),
+            "ln_post": tree(enc)["ln_post"],
+        },
+        "decoder": {
+            "tok_emb": leaf(dec.tok_emb),
+            "pos_emb": leaf(dec.pos_emb),
+            "blocks": stack_layers([tree(b) for b in dec.blocks]),
+            "ln": tree(dec)["ln"],
+        },
+    }

@@ -73,6 +73,14 @@ class WhisperConfig:
     def head_dim(self) -> int:
         return self.n_audio_state // self.n_audio_head
 
+    @property
+    def is_multilingual(self) -> bool:
+        return self.n_vocab >= 51865
+
+    @property
+    def num_languages(self) -> int:
+        return 100 if self.n_vocab == 51866 else 99
+
 
 # Official whisper model family dims.
 _PRESETS = {
@@ -479,13 +487,15 @@ def _attend_xa(q, xa: dict, scale):
     {"k_q","v_q"} / packed {"k_p","v_p"} with "k_scale","v_scale" [B,H,F].
     ``k_scale`` multiplies the scores after the q·k product, ``v_scale``
     the softmax weights (``ops/beam_attention.beam_cross_attention_reference``).
-    Returns [B,H,T,hd]."""
+    Returns (out [B,H,T,hd], the fp32 softmax weights [B,H,T,F]), as the
+    JAX package's ``_attend_xa``."""
     xa = unpack_xa_kv(xa)
     s2 = scale * scale
     if "k_q" not in xa:
-        return beam_cross_attention_reference(q, xa["k"], xa["v"], scale=s2)
+        return beam_cross_attention_reference(q, xa["k"], xa["v"], scale=s2,
+                                              return_weights=True)
     return beam_cross_attention_reference(q, xa["k_q"], xa["v_q"], xa["k_scale"],
-                                          xa["v_scale"], scale=s2)
+                                          xa["v_scale"], scale=s2, return_weights=True)
 
 
 def _attend_xa_step(q1, xa: dict, scale):
@@ -527,14 +537,24 @@ def decoder_apply(
     pos_offset: int,  # position of tokens[:, 0]
     kv_cache: dict,
     xa_kv: dict,
+    collect_cross_attn: bool = False,
+    cross_attn_layer_begin: Optional[int] = None,
 ):
     """Run the decoder on ``tokens`` (prefill T > 1, or one step T = 1),
     writing the self-attention KV cache in place at
     [pos_offset, pos_offset + T). Returns (logits [B, T, n_vocab] fp32,
-    kv_cache)."""
+    kv_cache).
+
+    ``collect_cross_attn`` (for DTW token timestamps) also returns the
+    cross-attention softmax weights, as a third element: stacked
+    [L, B, H, T, F] fp32, or with ``cross_attn_layer_begin`` the reduced
+    form the alignment pass reads, the mean over heads and over layers
+    ≥ ``cross_attn_layer_begin``, [B, T, F], accumulated layer by layer (the
+    JAX package's forms). Both run the plain cross-attention, T = 1 too."""
     dec = model.decoder
     B, T = tokens.shape
-    if T == 1:
+    reduced = collect_cross_attn and cross_attn_layer_begin is not None
+    if T == 1 and not collect_cross_attn:
         logits, kv_cache = decoder_step(cfg, model, tokens[:, 0], pos_offset, kv_cache, xa_kv)
         return logits[:, None], kv_cache
 
@@ -552,6 +572,7 @@ def decoder_apply(
     def to_heads(y):  # [B,T,d] → head-major [B,H,T,c]
         return _split_heads(y, h).transpose(1, 2)
 
+    weights, acc = [], None
     for li, layer in enumerate(dec.blocks):
         y = layer_norm(x, layer.attn_ln)
         qp, kp, vp = _self_qkv(y, layer.attn)
@@ -563,12 +584,25 @@ def decoder_apply(
 
         y = layer_norm(x, layer.cross_attn_ln)
         q = to_heads(dense(y, layer.cross_attn.q))
-        ca = _attend_xa(q, _xa_layer(xa_kv, li), scale)
+        ca, w = _attend_xa(q, _xa_layer(xa_kv, li), scale)
         x = x + dense(ca.transpose(1, 2).reshape(B, T, d), layer.cross_attn.o)
+        if reduced:
+            if li >= cross_attn_layer_begin:
+                acc = w.mean(dim=1) if acc is None else acc + w.mean(dim=1)
+        elif collect_cross_attn:
+            weights.append(w)
 
         x = x + mlp(layer_norm(x, layer.mlp_ln), layer.mlp_1, layer.mlp_2)
     x = layer_norm(x, dec.ln)
-    return tied_logits(x, dec), kv_cache
+    logits = tied_logits(x, dec)
+    if not collect_cross_attn:
+        return logits, kv_cache
+    if reduced:
+        n_sel = max(1, cfg.n_text_layer - cross_attn_layer_begin)
+        if acc is None:  # no layer at or above the threshold: zeros, as the JAX package
+            acc = torch.zeros_like(w[:, 0])
+        return logits, kv_cache, acc / n_sel
+    return logits, kv_cache, torch.stack(weights)
 
 
 def pos_index(pos, device) -> torch.Tensor:

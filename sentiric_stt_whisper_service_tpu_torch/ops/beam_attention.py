@@ -181,23 +181,26 @@ def beam_attention(
     return out
 
 
-def beam_cross_attention_reference(q, k, v, k_scale=None, v_scale=None, scale: float = 1.0):
+def beam_cross_attention_reference(q, k, v, k_scale=None, v_scale=None, scale: float = 1.0,
+                                   return_weights: bool = False):
     """Plain version of K6: the JAX package's ``models/whisper._attend_xa``
     on one layer's slab. q [B, H, T, hd]; k, v [B, H, hd, F] (bf16/fp32, or
     int8 with ``k_scale``/``v_scale`` [B, H, F]); ``scale`` is the whole score
     scale. Unquantized, q is scaled in its own dtype and the weights are
     rounded to the slab's dtype; quantized, ``k_scale * scale`` multiplies
     the scores after q·k and ``v_scale`` the fp32 weights, rounded to q's
-    dtype. Returns [B, H, T, hd]."""
+    dtype. Returns [B, H, T, hd], and with ``return_weights`` also the fp32
+    softmax weights [B, H, T, F] (the JAX package's ``_attend_xa`` returns
+    both)."""
     if k_scale is None:
         w = torch.softmax(torch.matmul((q * scale).float(), k.float()), dim=-1)
-        out = torch.matmul(w.to(v.dtype).float(), v.float().transpose(-1, -2))
-        return out.to(v.dtype)
-    scores = torch.matmul(q.float(), k.float()) * (k_scale * scale)[:, :, None, :]
-    w = torch.softmax(scores, dim=-1)
-    wv = (w * v_scale[:, :, None, :]).to(q.dtype)
-    out = torch.matmul(wv.float(), v.float().transpose(-1, -2))
-    return out.to(q.dtype)
+        out = torch.matmul(w.to(v.dtype).float(), v.float().transpose(-1, -2)).to(v.dtype)
+    else:
+        scores = torch.matmul(q.float(), k.float()) * (k_scale * scale)[:, :, None, :]
+        w = torch.softmax(scores, dim=-1)
+        wv = (w * v_scale[:, :, None, :]).to(q.dtype)
+        out = torch.matmul(wv.float(), v.float().transpose(-1, -2)).to(q.dtype)
+    return (out, w) if return_weights else out
 
 
 def _check_cross(name, q, k, v, F, scales=()):

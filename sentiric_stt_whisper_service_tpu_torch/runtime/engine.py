@@ -1,0 +1,1016 @@
+"""SttEngine: the transcription orchestrator, held against the JAX package's
+``runtime/engine.py``.
+
+Pipeline per request, as in the JAX package (the reference service's
+stt_engine.cpp semantics):
+
+  abort pre-check → resample to 16 kHz → min-duration gate → VAD gate →
+  admission (bounded wait, EngineBusyException on timeout) → long-form
+  windowed decode with prompt carry-over and the temperature-fallback
+  ladder → per-segment post-processing (hallucination filter, 0.40
+  avg-token-prob gate, centisecond timestamps, DTW token times, prosody on
+  the segment slice, per-request speaker clustering).
+
+Quality-gate semantics (whisper.cpp parity):
+  * retry at next temperature when the quality gate fails — default is
+    whisper.cpp's entropy form behind the reference's ``entropy_thold=2.40``:
+    >32 sampled tokens whose last-32 count entropy is below 2.40
+    (``Settings.quality_gate="compression_ratio"`` selects openai-whisper's
+    zlib-ratio>2.4 form instead) — or when avg logprob < logprob_threshold;
+  * window treated as silence when no_speech_prob > no_speech_threshold
+    AND avg logprob < logprob_threshold;
+  * ladder: start temperature, then +0.2 steps up to 1.0; beam search only
+    at t=0, best_of sampling above.
+
+What differs from the JAX package:
+
+  * **Device.** ``Settings.device`` names it: "auto" / "cuda" is the CUDA
+    card (construction raises without one), "cpu" the plain PyTorch
+    versions. The audio, the encoder and the decode run there; the gates,
+    DTW, prosody and clustering are numpy on the host, as there.
+  * **One request on the device at a time.** Up to ``parallel_requests``
+    requests are admitted through the semaphore, as in the JAX package, and
+    then decode one after another under the engine's lock: the decode
+    replays CUDA graphs from the engine's one ``DecodeGraphs``, whose static
+    buffers belong to one request at a time. The continuous batcher and the
+    beam gang that the JAX package routes concurrent requests through are
+    not ported yet (ROADMAP queue 1 item 10); outputs are the same, only
+    throughput differs.
+  * **Encode, then decode.** The JAX package fuses mel → encoder → cross
+    K/V → greedy decode into one executable for a lone greedy request;
+    here the window is encoded (K1, K2, the quantized cross K/V) and then
+    decoded. ``TICK_PREFILL`` pinning and ``sample_cap`` are kept: they
+    give the same output and bound the number of graph classes.
+  * **Random draws.** Sampled rungs draw from a ``torch.Generator`` on the
+    engine's device, seeded from the clock as the JAX package seeds its key;
+    the draws differ from ``jax.random``'s.
+  * **Refused, not hidden**: ``draft_model`` (speculative decoding, ROADMAP
+    queue 1 item 14), ``mesh_shape`` other than "1" (item 15) and
+    ``beam_size`` above ``config.MAX_BEAM_SIZE`` raise at construction; a
+    request's ``beam_size`` above it raises. ``FLASH_ATTN=0`` has no effect
+    here: the encoder's attention runs K2 on the card (the engine says so in
+    its log when it is built).
+  * ``warmup()`` captures the decode graph classes of the configured ladder
+    (the JAX package compiles its shape classes there).
+
+``PerformanceMetrics.stages_ms`` splits a request's time into language
+detection, encode, decode, alignment pass and prosody with clustering
+(device work synchronised at each stage's end).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import logging
+import threading
+import time
+import zlib
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from ..audio import resample
+from ..config import Settings, check_beam_size
+from ..diarize import SpeakerClusterer
+from ..models import (
+    DecodeGraphs,
+    DecodeResult,
+    TokenIds,
+    WhisperConfig,
+    build_suppress_mask,
+    config_for,
+    decode_window,
+    decode_window_beam,
+    decode_window_best_of,
+    detect_language,
+    encoder_apply,
+    init_params,
+    precompute_xa_kv,
+)
+from ..models.sampling import PROMPT_BUCKETS, prompt_bucket
+from ..models.timestamps import align_bucket, alignment_scores, compute_token_times, token_boundaries
+from ..ops import N_SAMPLES, SAMPLE_RATE, compute_log_mel
+from ..ops.quant import fuse_decoder_qkv, is_quantized, quantize_params
+from ..prosody.extractor import AffectiveTags, ProsodyOptions, extract_prosody
+from ..text import clean_utf8, is_hallucination
+from ..tokenizer import LANGUAGES, WhisperTokenizer, fallback_tokenizer
+from .vad import is_speech_detected
+
+log = logging.getLogger(__name__)
+
+ENTROPY_THRESHOLD = 2.4  # whisper.cpp's gate (the reference's entropy_thold)
+COMPRESSION_RATIO_THRESHOLD = 2.4  # openai-whisper semantics
+SAMPLE_LEN = 224  # max sampled tokens per window (whisper: n_text_ctx // 2)
+# Per-request token caps (RequestOptions.max_decode_tokens) round up to one
+# of these: each is its own decode graph class.
+TOKEN_CAP_BUCKETS = (16, 32, 64, 128, SAMPLE_LEN)
+# Fixed prefill for capped greedy decodes, so that a carried prompt of any
+# length decodes in one graph class per cap (output-identical: positions in
+# [sample_begin, prefill_len) are never-attended EOT padding).
+TICK_PREFILL = 128
+
+def token_cap_bucket(n: int) -> int:
+    """Smallest TOKEN_CAP_BUCKETS entry ≥ n (SAMPLE_LEN for n ≤ 0)."""
+    if n <= 0:
+        return SAMPLE_LEN
+    for b in TOKEN_CAP_BUCKETS:
+        if n <= b:
+            return b
+    return SAMPLE_LEN
+
+
+class EngineBusyException(RuntimeError):
+    """All decode slots busy past the queue timeout."""
+
+
+@dataclasses.dataclass
+class TokenData:
+    text: str
+    p: float
+    t0: int  # centiseconds
+    t1: int
+
+
+@dataclasses.dataclass
+class RequestOptions:
+    """Per-request overrides; -1 = use server default."""
+
+    language: str = ""
+    prompt: str = ""
+    translate: bool = False
+    enable_diarization: bool = False
+    temperature: float = -1.0
+    beam_size: int = -1
+    best_of: int = -1
+    prosody_opts: ProsodyOptions = dataclasses.field(default_factory=ProsodyOptions)
+    should_abort: Optional[Callable[[], bool]] = None
+    # Encoder audio context override (whisper.cpp's audio_ctx): None =
+    # server setting; 0 = full; -1 = auto-bucket; N = fixed positions.
+    audio_ctx: Optional[int] = None
+    # True (default) = sequential windows with prompt carry-over (whisper
+    # semantics). False = the 30 s windows decoded together in groups of
+    # max_batch_size (fixed stride, no conditioning).
+    condition_on_previous_text: bool = True
+    # Per-window sampled-token budget; -1 = SAMPLE_LEN (224), else rounded
+    # up to TOKEN_CAP_BUCKETS.
+    max_decode_tokens: int = -1
+    # None = Settings.no_timestamps; True skips the DTW alignment pass
+    # (token times fall back to segment bounds).
+    no_timestamps: Optional[bool] = None
+
+
+@dataclasses.dataclass
+class TranscriptionResult:
+    """One segment."""
+
+    text: str = ""
+    language: str = ""
+    # Detect-language max softmax prob (1.0 when pinned).
+    language_probability: float = 0.0
+    prob: float = 0.0
+    t0: int = 0  # centiseconds
+    t1: int = 0
+    speaker_turn_next: bool = False
+    tokens: list[TokenData] = dataclasses.field(default_factory=list)
+    token_count: int = 0
+    gender_proxy: str = "?"
+    emotion_proxy: str = "neutral"
+    arousal: float = 0.0
+    valence: float = 0.0
+    affective: AffectiveTags = dataclasses.field(default_factory=AffectiveTags)
+    speaker_id: str = ""
+
+
+@dataclasses.dataclass
+class PerformanceMetrics:
+    queue_time_ms: float = 0.0
+    processing_time_ms: float = 0.0
+    token_count: int = 0
+    # Milliseconds per stage of the request on the device: "detect",
+    # "encode", "decode", "align" and "prosody" (with clustering).
+    stages_ms: dict = dataclasses.field(default_factory=dict)
+
+
+def resolve_device(name: str) -> torch.device:
+    """``Settings.device`` → the engine's device: "auto" / "cuda" the CUDA
+    card (raises when there is none), "cpu" the CPU."""
+    key = (name or "auto").strip().lower()
+    if key == "cpu":
+        return torch.device("cpu")
+    if key in ("auto", "cuda"):
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device={name!r}: no CUDA device (torch.cuda.is_available() is false); "
+                "set device='cpu' to run the plain PyTorch versions"
+            )
+        return torch.device("cuda")
+    raise ValueError(f"device={name!r}: expected 'auto', 'cuda' or 'cpu'")
+
+
+def _host(res: DecodeResult) -> DecodeResult:
+    """A DecodeResult's fields as numpy arrays on the host."""
+    return DecodeResult(*(x.cpu().numpy() for x in res))
+
+
+def _cut_after_first_poll():
+    """An abort callback that lets a decode capture its graphs and prefill,
+    then stops it at its first chunk (the first poll is the one before)."""
+    polls = iter((False,))
+    return lambda: next(polls, True)
+
+
+class SttEngine:
+    """Whisper inference engine over one ``Whisper`` module on one device.
+
+    Concurrency: admission is a bounded semaphore of ``parallel_requests``
+    slots with a ``request_queue_timeout_ms`` wait; admitted requests run on
+    the device one at a time under ``_device_lock``."""
+
+    # Encoder-context classes for audio_ctx=-1 (auto): smallest bucket
+    # covering the real audio; 384 ≈ 7.7 s, 768 ≈ 15.4 s, 1152 ≈ 23 s.
+    AUDIO_CTX_BUCKETS = (384, 768, 1152, 1500)
+
+    def __init__(
+        self,
+        settings: Settings,
+        model_name: Optional[str] = None,
+        params=None,
+        tokenizer: Optional[WhisperTokenizer] = None,
+        random_init: bool = False,
+    ):
+        self.settings = settings
+        name = model_name or settings.model_filename.replace("ggml-", "").replace(".bin", "")
+        self.model_name = name
+        dm = (settings.draft_model or "").strip()
+        if dm:
+            raise NotImplementedError(
+                f"draft_model={dm!r}: speculative decoding (models/speculative.py) is not "
+                "ported yet (ROADMAP queue 1 item 14)"
+            )
+        if settings.mesh_shape not in ("1", "", None):
+            raise NotImplementedError(
+                f"mesh_shape={settings.mesh_shape!r}: sharding over a device mesh "
+                "(parallel/mesh.py) is not ported yet (ROADMAP queue 1 item 15)"
+            )
+        check_beam_size(settings.beam_size)
+        self.device = resolve_device(settings.device)
+        if params is None:
+            if random_init:
+                g = torch.Generator(device=self.device)
+                g.manual_seed(0)
+                params = init_params(config_for(name), g)
+            else:
+                from ..checkpoint import load_checkpoint
+
+                params, tokenizer = load_checkpoint(settings, config_for(name), self.device)
+        params = params.to(self.device)
+        self.cfg: WhisperConfig = params.cfg
+        # compute_type=int8: weight-only int8 weights and an int8 cross slab;
+        # int4: int8 weights and the packed int4 cross slab.
+        ct = settings.compute_type.strip().lower()
+        self.quantized = ct.startswith(("int8", "int4"))
+        self.xa_bits = 4 if ct.startswith("int4") else (8 if self.quantized else 0)
+        # Self-KV-cache storage: float8 with the quantized compute types,
+        # the compute dtype otherwise; SELF_CACHE=f8|bf16 overrides.
+        sc = getattr(settings, "self_cache", "auto").strip().lower()
+        if sc in ("f8", "fp8", "float8", "float8_e4m3fn", "e4m3"):
+            self.self_dtype = torch.float8_e4m3fn
+        elif sc in ("bf16", "bfloat16", "off", "none"):
+            self.self_dtype = None
+        else:  # auto
+            self.self_dtype = torch.float8_e4m3fn if self.quantized else None
+        with torch.inference_mode():
+            if self.quantized and not is_quantized(params):
+                quantize_params(params)
+            fuse_decoder_qkv(params)  # one q/k/v product on the decode path
+        self.params = params
+        if not settings.flash_attn:
+            log.warning("FLASH_ATTN=0 has no effect in the PyTorch port: the encoder's "
+                        "attention runs its CUDA kernel (K2) on the card")
+        self.tokenizer = tokenizer or fallback_tokenizer(self.cfg.n_vocab)
+        self.ids = TokenIds.from_tokenizer(self.tokenizer)
+        self.suppress_mask = torch.from_numpy(
+            build_suppress_mask(
+                self.cfg.n_vocab, self.ids, self.tokenizer.non_speech_tokens,
+                suppress_nst=settings.suppress_nst,
+            )
+        ).to(self.device)
+        self._slots = threading.Semaphore(max(1, settings.parallel_requests))
+        self._device_lock = threading.Lock()
+        self._ready = True
+        self._generator = torch.Generator(device=self.device)
+        self._generator.manual_seed(int(time.time()) & 0x7FFFFFFF)
+        # The decode graph classes of this engine (models/graphs.py): one
+        # StepLoop per shape class, captured at its first request.
+        self.graphs = DecodeGraphs()
+        self._stages: Optional[dict] = None  # the running request's stage ms
+
+    # ------------------------------------------------------------------
+    @contextlib.contextmanager
+    def _stage(self, name: str):
+        """Adds the time of the block (the device synchronised at its end)
+        to the running request's ``stages_ms[name]``."""
+        t = time.perf_counter()
+        try:
+            yield
+        finally:
+            if self._stages is not None:
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                ms = (time.perf_counter() - t) * 1e3
+                self._stages[name] = self._stages.get(name, 0.0) + ms
+
+    def warmup(self) -> float:
+        """Capture the decode graph classes a request's first window meets
+        under the current settings, with a short synthetic clip: the ladder's
+        first rung (greedy or beam at full context, and greedy at every
+        audio_ctx bucket under audio_ctx=-1) and, when the ladder can climb,
+        its sampled rung (best-of or greedy sampling). Each decode is cut at
+        its first chunk once its graphs are captured. Language detection,
+        the alignment pass and prosody run once. Returns the seconds
+        spent."""
+        t0 = time.perf_counter()
+        s = self.settings
+        with self._device_lock:
+            sot = list(self.tokenizer.sot_sequence("en" if self.cfg.is_multilingual else None))
+            t = np.arange(SAMPLE_RATE, dtype=np.float32) / SAMPLE_RATE
+            clip = np.zeros(N_SAMPLES, np.float32)
+            clip[:SAMPLE_RATE] = 0.1 * np.sin(2 * np.pi * 150 * t)
+            xa = self._encode_window(clip[None])
+            if self.cfg.is_multilingual:
+                sp = self.tokenizer.special
+                detect_language(self.cfg, self.params, xa, sp.sot, sp.language_begin,
+                                sp.num_languages)
+            rungs = [(s.temperature, s.beam_size, s.best_of)]
+            if s.temperature + 0.2 <= 1.0 + 1e-6:
+                rungs.append((max(s.temperature, 0.0) + 0.2, s.beam_size, s.best_of))
+            for temp, beam, best_of in rungs:
+                self._decode_one(xa, sot, len(sot), 0, temp, beam, best_of,
+                                 should_abort=_cut_after_first_poll())
+            if s.audio_ctx == -1 and s.temperature <= 0.0 and s.beam_size <= 1:
+                for b in self.AUDIO_CTX_BUCKETS:
+                    if b < self.cfg.n_audio_ctx:
+                        xa_b = self._encode_window(clip[None], b)
+                        self._decode_one(xa_b, sot, len(sot), 0, 0.0, 1, 1,
+                                         should_abort=_cut_after_first_poll())
+            if not s.no_timestamps:
+                seq = np.asarray(sot + [100 + i for i in range(8)], np.int64)
+                compute_token_times(self.cfg, self.params, xa, seq, len(sot), 50)
+            extract_prosody(clip[:SAMPLE_RATE], SAMPLE_RATE)  # its first call imports scipy
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        return time.perf_counter() - t0
+
+    def shutdown(self):
+        """Release the decode graph classes (their static buffers and pool);
+        a later request captures its class anew."""
+        with self._device_lock:
+            self.graphs = DecodeGraphs()
+
+    def is_ready(self) -> bool:
+        return self._ready
+
+    def get_settings(self) -> Settings:
+        return self.settings
+
+    def _window_ctx(self, remain_samples: int, override: Optional[int] = None) -> Optional[int]:
+        """Encoder context for a window with ``remain_samples`` of real
+        audio, or None for the full 1500 (settings.audio_ctx; a request's
+        RequestOptions.audio_ctx overrides)."""
+        ac = self.settings.audio_ctx if override is None else override
+        if ac == 0:
+            return None
+        full = self.cfg.n_audio_ctx
+        if ac > 0:
+            return min(max(64, ac), full)
+        need = -(-remain_samples // 320)  # samples → encoder positions
+        for b in self.AUDIO_CTX_BUCKETS:
+            if need <= b and b <= full:
+                return b if b < full else None
+        return None
+
+    def _encode_window(self, windows: np.ndarray, n_ctx: Optional[int] = None) -> dict:
+        """audio windows [B, N] → cross-attention K/V on the engine's device:
+        log-mel (K1 on the card), encoder (K2), then the K/V of every
+        decoder layer, quantized to int8 or the packed int4 carrier by
+        compute_type. ``n_ctx`` crops (or zero-pads) the window to its first
+        ``n_ctx`` encoder positions (audio_ctx). An odd ``n_ctx`` under
+        int4 raises (the carrier packs position pairs), as in the JAX
+        package."""
+        windows = np.asarray(windows, np.float32)
+        if n_ctx is not None:
+            target = n_ctx * 320
+            if target < windows.shape[-1]:
+                windows = windows[..., :target]
+            elif target > windows.shape[-1]:
+                pad = [(0, 0)] * (windows.ndim - 1) + [(0, target - windows.shape[-1])]
+                windows = np.pad(windows, pad)
+        cfg = self.cfg
+        with self._stage("encode"), torch.inference_mode():
+            audio = torch.from_numpy(np.ascontiguousarray(windows)).to(self.device)
+            mel = compute_log_mel(audio, n_mels=cfg.n_mels, dtype=cfg.dtype)
+            return precompute_xa_kv(cfg, self.params, encoder_apply(cfg, self.params, mel),
+                                    self.xa_bits)
+
+    # ------------------------------------------------------------------
+    def transcribe_pcm16(
+        self,
+        pcm16: np.ndarray,
+        input_sample_rate: int,
+        options: RequestOptions,
+        metrics: Optional[PerformanceMetrics] = None,
+    ) -> list[TranscriptionResult]:
+        pcm = np.asarray(pcm16, np.int16).astype(np.float32) / 32768.0
+        return self.transcribe(pcm, input_sample_rate, options, metrics)
+
+    def transcribe(
+        self,
+        pcmf32: np.ndarray,
+        input_sample_rate: int,
+        options: RequestOptions,
+        metrics: Optional[PerformanceMetrics] = None,
+    ) -> list[TranscriptionResult]:
+        t_start = time.perf_counter()
+        metrics = metrics if metrics is not None else PerformanceMetrics()
+        s = self.settings
+
+        if options.should_abort and options.should_abort():
+            return []
+
+        audio = np.asarray(pcmf32, np.float32).reshape(-1)
+        if input_sample_rate != SAMPLE_RATE:
+            with self._device_lock:  # no device work beside another request's
+                audio = resample(audio, input_sample_rate, SAMPLE_RATE,
+                                 device=self.device).cpu().numpy()
+
+        # Min-duration gate.
+        min_samples = int(s.vad_ms_min_duration * SAMPLE_RATE / 1000)
+        if audio.shape[0] < min_samples:
+            return []
+
+        # VAD gate: silence → single empty-text result with a neutral
+        # affective payload, language "unknown", speaker "unknown", t1 in
+        # ms (the reference's quirks; min speech 250 ms inside the VAD).
+        if s.enable_vad and not is_speech_detected(audio, SAMPLE_RATE, s.vad_threshold, 250):
+            tags = AffectiveTags()
+            res = TranscriptionResult(
+                text="", language="unknown", prob=0.0,
+                t0=0, t1=int(audio.shape[0] / 16.0),
+                affective=tags, gender_proxy=tags.gender_proxy,
+                emotion_proxy=tags.emotion_proxy, speaker_id="unknown",
+            )
+            metrics.processing_time_ms = (time.perf_counter() - t_start) * 1e3
+            return [res]
+
+        # Admission.
+        t_q = time.perf_counter()
+        if not self._slots.acquire(timeout=s.request_queue_timeout_ms / 1000.0):
+            raise EngineBusyException("Engine busy: no free decode slot within timeout")
+        try:
+            self._decode_options(options)  # a refused beam size raises here
+            with self._device_lock:
+                metrics.queue_time_ms = (time.perf_counter() - t_q) * 1e3
+                self._stages = metrics.stages_ms
+                try:
+                    results = self._transcribe_longform(audio, options, metrics)
+                finally:
+                    self._stages = None
+        finally:
+            self._slots.release()
+        metrics.processing_time_ms = (time.perf_counter() - t_start) * 1e3
+        metrics.token_count = sum(r.token_count for r in results)
+        return results
+
+    # ------------------------------------------------------------------
+    def _decode_options(self, options: RequestOptions):
+        s = self.settings
+        temperature = options.temperature if options.temperature >= 0.0 else s.temperature
+        beam_size = options.beam_size if options.beam_size > 0 else s.beam_size
+        best_of = options.best_of if options.best_of > 0 else s.best_of
+        check_beam_size(beam_size)
+        return temperature, beam_size, best_of
+
+    def _resolve_language(
+        self, audio: np.ndarray, options: RequestOptions
+    ) -> tuple[str, float, Optional[dict], Optional[int]]:
+        """(language, probability, window0_xa_kv, window0_ctx). Probability
+        is the detect-language max softmax prob when auto-detected, 1.0
+        when the caller pinned the language. When a detect pass ran, its
+        encoder output is returned so that the long-form loop reuses it for
+        window 0."""
+        lang = (options.language or self.settings.language or "auto").lower()
+        if lang and lang != "auto":
+            return lang, 1.0, None, None
+        if not self.cfg.is_multilingual:
+            return "en", 1.0, None, None
+        window = np.zeros(N_SAMPLES, np.float32)
+        n = min(audio.shape[0], N_SAMPLES)
+        window[:n] = audio[:n]
+        n_ctx = self._window_ctx(n, options.audio_ctx)
+        xa_kv = self._encode_window(window[None], n_ctx)
+        sp = self.tokenizer.special
+        with self._stage("detect"):
+            probs = detect_language(self.cfg, self.params, xa_kv, sp.sot, sp.language_begin,
+                                    sp.num_languages)[0].cpu().numpy()
+        best = int(np.argmax(probs))
+        return LANGUAGES[best], float(probs[best]), xa_kv, n_ctx
+
+    def _decode_one(
+        self,
+        xa_kv: dict,
+        init_tokens: list[int],
+        sample_begin: int,
+        sot_index: int,
+        temperature: float,
+        beam_size: int,
+        best_of: int,
+        should_abort=None,
+        sample_len: int = SAMPLE_LEN,
+    ) -> Optional[DecodeResult]:
+        """One decode attempt at one temperature for a single window: beam
+        search at t = 0 with beam_size > 1, best-of sampling above t = 0
+        with best_of > 1, else greedy (or sampled) decoding; the step
+        replays the CUDA graph of its class from ``self.graphs``. Returns
+        the DecodeResult on the host, or None if aborted."""
+        cfg = self.cfg
+        ctx = cfg.n_text_ctx
+        tinit = torch.full((1, ctx), self.ids.eot, dtype=torch.int64)
+        tinit[0, : len(init_tokens)] = torch.tensor(init_tokens, dtype=torch.int64)
+        tinit = tinit.to(self.device)
+        prefill_len = prompt_bucket(sample_begin)
+        # Greedy decodes pin the prefill to one bucket per cap class (the
+        # JAX package's TICK_PREFILL pinning; output-identical).
+        pin_prefill = temperature <= 0.0 and beam_size <= 1
+        if pin_prefill:
+            pinned = TICK_PREFILL if sample_len < SAMPLE_LEN else PROMPT_BUCKETS[-1]
+            prefill_len = max(prefill_len, pinned)
+        max_len = min(ctx, prefill_len + sample_len)
+        common = dict(max_len=max_len, prefill_len=prefill_len, self_dtype=self.self_dtype,
+                      should_abort=should_abort, graphs=self.graphs)
+        args = (cfg, self.params, xa_kv, tinit, sample_begin, sot_index, self.ids,
+                self.suppress_mask)
+        with self._stage("decode"):
+            if temperature <= 0.0 and beam_size > 1:
+                res = decode_window_beam(*args, beam_size=beam_size, **common)
+            elif temperature > 0.0 and best_of > 1:
+                res = decode_window_best_of(*args, temperature, self._generator,
+                                            best_of=best_of,
+                                            cvalid_rows=self.settings.cvalid_rows, **common)
+            else:
+                res = decode_window(
+                    *args, temperature, self._generator if temperature > 0.0 else None,
+                    cvalid_rows=self.settings.cvalid_rows,
+                    sample_cap=sample_len if pin_prefill else None, **common)
+            return None if res is None else _host(res)
+
+    def _transcribe_longform(
+        self,
+        audio: np.ndarray,
+        options: RequestOptions,
+        metrics: PerformanceMetrics,
+    ) -> list[TranscriptionResult]:
+        s = self.settings
+        cfg = self.cfg
+        tok = self.tokenizer
+        sp = tok.special
+        ids = self.ids
+        temperature0, beam_size, best_of = self._decode_options(options)
+        sample_len = token_cap_bucket(options.max_decode_tokens)
+        no_ts = s.no_timestamps if options.no_timestamps is None else options.no_timestamps
+
+        # Beam-strategy requests always decode at the full audio context,
+        # as in the JAX package.
+        if beam_size > 1 and temperature0 <= 0.0:
+            options = dataclasses.replace(options, audio_ctx=0)
+
+        language, lang_prob, xa_kv_w0, xa_ctx_w0 = self._resolve_language(audio, options)
+        task = "translate" if (options.translate or s.translate) else "transcribe"
+
+        clusterer = SpeakerClusterer(s.cluster_threshold)
+        diarize = options.enable_diarization or s.enable_diarization
+
+        prompt_text_tokens: list[int] = (
+            tok.encode(" " + options.prompt.strip()) if options.prompt.strip() else []
+        )
+
+        n_windows_total = -(-audio.shape[0] // N_SAMPLES)
+        if not options.condition_on_previous_text and not prompt_text_tokens and n_windows_total > 1:
+            return self._transcribe_batched(audio, options, language, lang_prob, task,
+                                            clusterer, diarize)
+
+        carried_tokens: list[int] = []
+        results: list[TranscriptionResult] = []
+        n = audio.shape[0]
+        seek = 0  # in samples
+        while seek < n:
+            if options.should_abort and options.should_abort():
+                break
+            window = np.zeros(N_SAMPLES, np.float32)
+            remain = min(n - seek, N_SAMPLES)
+            window[:remain] = audio[seek : seek + remain]
+            window_dur_cs = int(round(remain / SAMPLE_RATE * 100))  # centisec
+
+            n_ctx_w = self._window_ctx(remain, options.audio_ctx)
+            if seek == 0 and xa_kv_w0 is not None and xa_ctx_w0 == n_ctx_w:
+                xa_kv = xa_kv_w0  # the detect pass encoded this very window
+            else:
+                xa_kv = self._encode_window(window[None], n_ctx_w)
+
+            # Decoder preamble: [sot_prev + carried/prompt] [sot lang task].
+            prefix = prompt_text_tokens + carried_tokens
+            prefix = prefix[-(cfg.n_text_ctx // 2 - 1) :]
+            if sample_len < SAMPLE_LEN:
+                # Capped decodes pin the prefill to TICK_PREFILL: keep the
+                # carried prompt inside it.
+                prefix = prefix[-(TICK_PREFILL - 8) :]
+            init_tokens: list[int] = []
+            if prefix:
+                init_tokens = [sp.sot_prev] + prefix
+            sot_index = len(init_tokens)
+            init_tokens += tok.sot_sequence(language if cfg.is_multilingual else None, task)
+            sample_begin = len(init_tokens)
+
+            # Temperature-fallback ladder.
+            temps = [temperature0 + 0.2 * i for i in range(6)]
+            temps = [t for t in temps if t <= 1.0 + 1e-6] or [temperature0]
+            chosen = None
+            used_temp = temps[0]
+            for t in temps:
+                used_temp = t
+                res = self._decode_one(
+                    xa_kv, init_tokens, sample_begin, sot_index, t, beam_size, best_of,
+                    should_abort=options.should_abort, sample_len=sample_len,
+                )
+                if res is None:  # aborted mid-decode
+                    return results
+                seq = np.asarray(res.tokens[0])[sample_begin : int(res.lengths[0])]
+                text_tokens = [int(x) for x in seq if x < ids.eot]
+                text = tok.decode(text_tokens)
+                avg_lp = float(res.avg_logprobs[0])
+                needs_fallback = (
+                    quality_gate_fails(s.quality_gate, text, text_tokens)
+                    or avg_lp < s.logprob_threshold
+                )
+                no_speech = (
+                    float(res.no_speech_probs[0]) > s.no_speech_threshold
+                    and avg_lp < s.logprob_threshold
+                )
+                if no_speech:
+                    chosen = None  # silence: skip window, no retry
+                    break
+                if not needs_fallback:
+                    chosen = res
+                    break
+                chosen = res  # keep last attempt if all fail
+            if chosen is None:
+                seek += remain
+                carried_tokens = []
+                continue
+
+            seq = np.asarray(chosen.tokens[0])[sample_begin : int(chosen.lengths[0])]
+            tok_lps = np.asarray(chosen.token_logprobs[0])[sample_begin : int(chosen.lengths[0])]
+
+            segments, advance_cs = _parse_segments(seq, tok_lps, ids, window_dur_cs)
+            base_cs = int(round(seek / SAMPLE_RATE * 100))
+
+            # Token-level timestamps: DTW over cross-attention, one extra
+            # teacher-forced pass per window; window-relative seconds.
+            token_times = None
+            if segments and not no_ts:
+                try:
+                    align_seq = [t for t in map(int, seq) if t != ids.eot]
+                    with self._stage("align"):
+                        token_times = compute_token_times(
+                            cfg, self.params, xa_kv,
+                            np.asarray(init_tokens + align_seq, np.int64),
+                            sample_begin, max(1, remain // 320),
+                        )
+                except Exception:  # noqa: BLE001 — timestamps are best-effort, as there
+                    log.exception("token timestamps failed; segment bounds used")
+                    token_times = None
+
+            results.extend(
+                self._build_segment_results(
+                    segments, base_cs, token_times, audio, language,
+                    lang_prob, options, clusterer, diarize,
+                )
+            )
+
+            # Prompt carry-over: condition on previous text unless the
+            # ladder got hot (the prompt resets above t = 0.5).
+            all_text_tokens = [int(x) for x in seq if x < ids.eot]
+            if all_text_tokens and used_temp <= 0.5:
+                carried_tokens = (carried_tokens + all_text_tokens)[-(cfg.n_text_ctx // 2 - 1) :]
+            else:
+                carried_tokens = []
+
+            seek += max(1, int(round(advance_cs / 100.0 * SAMPLE_RATE)))
+
+        # speaker_turn_next: a speaker change between consecutive segments.
+        if diarize:
+            for a, b in zip(results, results[1:]):
+                if a.speaker_id and b.speaker_id and a.speaker_id != b.speaker_id:
+                    a.speaker_turn_next = True
+        return results
+
+    # ------------------------------------------------------------------
+    def _transcribe_batched(
+        self,
+        audio: np.ndarray,
+        options: RequestOptions,
+        language: str,
+        lang_prob: float,
+        task: str,
+        clusterer: SpeakerClusterer,
+        diarize: bool,
+    ) -> list[TranscriptionResult]:
+        """Batched long-form path: fixed 30 s strides, the windows of a
+        group (max_batch_size) decoded in one call
+        (condition_on_previous_text=False). The temperature ladder
+        re-decodes a whole group when any window fails its gates; accepted
+        windows keep their first passing result."""
+        s = self.settings
+        cfg = self.cfg
+        tok = self.tokenizer
+        ids = self.ids
+        temperature0, beam_size, best_of = self._decode_options(options)
+
+        n = audio.shape[0]
+        n_windows = -(-n // N_SAMPLES)
+        group_size = max(1, s.max_batch_size)
+
+        init_tokens = tok.sot_sequence(language if cfg.is_multilingual else None, task)
+        sample_begin = len(init_tokens)
+        prefill_len = prompt_bucket(sample_begin)
+        sample_len = token_cap_bucket(options.max_decode_tokens)
+        no_ts = s.no_timestamps if options.no_timestamps is None else options.no_timestamps
+        max_len = min(cfg.n_text_ctx, prefill_len + sample_len)
+        results: list[TranscriptionResult] = []
+
+        for g0 in range(0, n_windows, group_size):
+            if options.should_abort and options.should_abort():
+                break
+            g_idx = list(range(g0, min(g0 + group_size, n_windows)))
+            W = len(g_idx)
+            windows = np.zeros((W, N_SAMPLES), np.float32)
+            durs_cs = []
+            for j, w in enumerate(g_idx):
+                remain = min(n - w * N_SAMPLES, N_SAMPLES)
+                windows[j, :remain] = audio[w * N_SAMPLES : w * N_SAMPLES + remain]
+                durs_cs.append(int(round(remain / SAMPLE_RATE * 100)))
+
+            xa_kv = self._encode_window(windows)
+            tinit = torch.full((W, cfg.n_text_ctx), ids.eot, dtype=torch.int64)
+            tinit[:, :sample_begin] = torch.tensor(init_tokens, dtype=torch.int64)
+            tinit = tinit.to(self.device)
+            args = (cfg, self.params, xa_kv, tinit, sample_begin, 0, ids, self.suppress_mask)
+            common = dict(max_len=max_len, prefill_len=prefill_len, self_dtype=self.self_dtype,
+                          should_abort=options.should_abort, graphs=self.graphs)
+
+            accepted: dict[int, tuple] = {}  # j -> (seq, tok_lps)
+            silent: set[int] = set()
+            temps = [temperature0 + 0.2 * i for i in range(6)]
+            temps = [t for t in temps if t <= 1.0 + 1e-6] or [temperature0]
+            last = {}
+            for t in temps:
+                if len(accepted) + len(silent) == W:
+                    break
+                with self._stage("decode"):
+                    if t <= 0.0 and beam_size > 1:
+                        res = decode_window_beam(*args, beam_size=beam_size, **common)
+                    else:
+                        res = decode_window(
+                            *args, max(t, 0.0), self._generator if t > 0.0 else None,
+                            cvalid_rows=s.cvalid_rows, **common)
+                    if res is None:  # aborted mid-decode → stop the request
+                        return results
+                    res = _host(res)
+                toks_np, lens_np, lps_np = res.tokens, res.lengths, res.token_logprobs
+                for j in range(W):
+                    if j in accepted or j in silent:
+                        continue
+                    seq = toks_np[j, sample_begin : lens_np[j]]
+                    tok_lps = lps_np[j, sample_begin : lens_np[j]]
+                    text_toks = [int(x) for x in seq if x < ids.eot]
+                    text = tok.decode(text_toks)
+                    avg_lp = float(res.avg_logprobs[j])
+                    no_speech = (
+                        float(res.no_speech_probs[j]) > s.no_speech_threshold
+                        and avg_lp < s.logprob_threshold
+                    )
+                    if no_speech:
+                        silent.add(j)
+                        continue
+                    ok = (
+                        not quality_gate_fails(s.quality_gate, text, text_toks)
+                        and avg_lp >= s.logprob_threshold
+                    )
+                    last[j] = (seq, tok_lps)
+                    if ok:
+                        accepted[j] = (seq, tok_lps)
+            for j in range(W):
+                if j not in accepted and j not in silent and j in last:
+                    accepted[j] = last[j]  # keep best-effort final attempt
+
+            # Batched token-time alignment for accepted windows.
+            token_times: dict[int, np.ndarray] = {}
+            if accepted and not no_ts:
+                try:
+                    with self._stage("align"):
+                        token_times = self._align_batch(
+                            xa_kv, accepted, init_tokens, sample_begin, durs_cs)
+                except Exception:  # noqa: BLE001 — timestamps are best-effort, as there
+                    log.exception("token timestamps failed; segment bounds used")
+                    token_times = {}
+
+            for j in sorted(accepted):
+                seq, tok_lps = accepted[j]
+                base_cs = g_idx[j] * 3000  # 30 s per window in centisec
+                segments, _ = _parse_segments(seq, tok_lps, ids, durs_cs[j])
+                results.extend(
+                    self._build_segment_results(
+                        segments, base_cs, token_times.get(j), audio, language, lang_prob,
+                        options, clusterer, diarize,
+                    )
+                )
+
+        if diarize:
+            for a, b in zip(results, results[1:]):
+                if a.speaker_id and b.speaker_id and a.speaker_id != b.speaker_id:
+                    a.speaker_turn_next = True
+        return results
+
+    def _align_batch(self, xa_kv, accepted, init_tokens, sample_begin, durs_cs) -> dict:
+        """One alignment pass over the accepted windows of a group → token
+        times per window."""
+        cfg, ids = self.cfg, self.ids
+        keys = sorted(accepted)
+        seqs = {j: [int(x) for x in accepted[j][0] if x != ids.eot] for j in keys}
+        t_max = max(len(seqs[j]) for j in keys)
+        if t_max <= 0:
+            return {}
+        width = min(align_bucket(sample_begin + t_max), cfg.n_text_ctx)
+        align = np.full((len(keys), width), ids.eot, np.int64)
+        for r, j in enumerate(keys):
+            align[r, :sample_begin] = init_tokens
+            align[r, sample_begin : sample_begin + len(seqs[j])] = seqs[j]
+        rows = torch.tensor(keys, device=self.device)
+        sel = {k: v.index_select(1, rows) for k, v in xa_kv.items()}
+        scores = alignment_scores(cfg, self.params, sel,
+                                  torch.from_numpy(align).to(self.device)).cpu().numpy()
+        out = {}
+        for r, j in enumerate(keys):
+            n_frames = max(1, int(durs_cs[j] / 2))
+            sc = scores[r, sample_begin : sample_begin + len(seqs[j])]
+            if sc.shape[0]:
+                out[j] = token_boundaries(sc, n_frames)
+        return out
+
+    def _build_segment_results(
+        self,
+        segments,
+        base_cs: int,
+        token_times,
+        audio: np.ndarray,
+        language: str,
+        lang_prob: float,
+        options: RequestOptions,
+        clusterer: SpeakerClusterer,
+        diarize: bool,
+    ) -> list[TranscriptionResult]:
+        """Per-segment post-processing for both long-form paths (gates,
+        prosody, clustering)."""
+        with self._stage("prosody"):
+            s = self.settings
+            tok = self.tokenizer
+            n = audio.shape[0]
+            out: list[TranscriptionResult] = []
+            for seg in segments:
+                raw_text = tok.decode(seg["tokens"])
+                text = clean_utf8(raw_text).strip()
+                if is_hallucination(text):
+                    continue
+                probs = [float(np.exp(lp)) for lp in seg["logprobs"]]
+                avg_p = float(np.mean(probs)) if probs else 0.0
+                if avg_p < s.min_segment_avg_prob:
+                    continue
+                t0_cs = base_cs + seg["t0"]
+                t1_cs = base_cs + seg["t1"]
+                s0 = min(max(0, int(t0_cs / 100.0 * SAMPLE_RATE)), n)
+                s1 = min(max(s0, int(t1_cs / 100.0 * SAMPLE_RATE)), n)
+                if s1 - s0 >= 160:
+                    tags = extract_prosody(audio[s0:s1], SAMPLE_RATE, options.prosody_opts)
+                else:
+                    tags = AffectiveTags()
+                speaker_id = clusterer.assign_or_add(tags.speaker_vec) if diarize else ""
+                token_datas = []
+                for t_id, lp, pos in zip(seg["tokens"], seg["logprobs"], seg["positions"]):
+                    if token_times is not None and pos < len(token_times):
+                        tt0 = base_cs + int(round(token_times[pos, 0] * 100))
+                        tt1 = base_cs + int(round(token_times[pos, 1] * 100))
+                    else:
+                        tt0, tt1 = t0_cs, t1_cs
+                    token_datas.append(
+                        TokenData(text=clean_utf8(tok.token_piece(t_id)),
+                                  p=float(np.exp(lp)), t0=tt0, t1=tt1)
+                    )
+                out.append(
+                    TranscriptionResult(
+                        text=text, language=language,
+                        language_probability=lang_prob, prob=avg_p,
+                        t0=t0_cs, t1=t1_cs, tokens=token_datas,
+                        token_count=len(token_datas),
+                        gender_proxy=tags.gender_proxy,
+                        emotion_proxy=tags.emotion_proxy,
+                        arousal=tags.arousal, valence=tags.valence,
+                        affective=tags, speaker_id=speaker_id,
+                    )
+                )
+            return out
+
+
+def _compression_ratio(text: str) -> float:
+    data = text.encode("utf-8")
+    if not data:
+        return 0.0
+    return len(data) / len(zlib.compress(data))
+
+
+def _token_entropy(text_tokens) -> float:
+    """whisper.cpp's sequence entropy: -Σ p·ln(p) over the token-count
+    distribution of the last 32 sampled tokens (whisper_sequence_score).
+    High entropy = diverse output; low = repetition loop."""
+    import math
+
+    toks = list(text_tokens)[-32:]
+    if not toks:
+        return 0.0
+    n = len(toks)
+    counts: dict[int, int] = {}
+    for t in toks:
+        counts[t] = counts.get(t, 0) + 1
+    return -sum((c / n) * math.log(c / n) for c in counts.values())
+
+
+def quality_gate_fails(mode: str, text: str, text_tokens) -> bool:
+    """Temperature-fallback trigger (avg-logprob check is separate).
+
+    ``mode="entropy"``: whisper.cpp semantics behind the reference's
+    entropy_thold=2.40 — fails when MORE than 32 tokens were sampled and
+    their last-32 count entropy is below 2.40.
+    ``mode="compression_ratio"``: openai-whisper semantics — fails when
+    the zlib compression ratio of the decoded text exceeds 2.4.
+    ``mode="off"``: never fails (single-rung decode; the avg-logprob and
+    no-speech gates still apply unless their thresholds are moved)."""
+    if mode in ("off", "none"):
+        return False
+    if mode == "compression_ratio":
+        return _compression_ratio(text) > COMPRESSION_RATIO_THRESHOLD
+    return len(text_tokens) > 32 and _token_entropy(text_tokens) < ENTROPY_THRESHOLD
+
+
+def _parse_segments(seq, tok_lps, ids: TokenIds, window_dur_cs: int):
+    """Split a sampled token sequence into timestamped segments.
+
+    Returns (segments, advance_cs): each segment is {"tokens", "logprobs",
+    "positions", "t0", "t1"} with times in centiseconds relative to the
+    window; advance is how far to move the audio cursor (whisper long-form
+    semantics: to the last complete timestamp if the window ended with one,
+    else the whole window)."""
+    ts_begin = ids.timestamp_begin
+    segments = []
+    cur_tokens: list[int] = []
+    cur_lps: list[float] = []
+    cur_pos: list[int] = []
+    t0 = 0
+    open_seg = False
+    last_ts = 0  # centisec of last timestamp token seen
+    for pos, (t_id, lp) in enumerate(zip(map(int, seq), tok_lps)):
+        if t_id == ids.eot:
+            break
+        if t_id >= ts_begin:
+            cs = (t_id - ts_begin) * 2  # 0.02 s per step
+            last_ts = cs
+            if open_seg:
+                if cur_tokens:
+                    segments.append({"tokens": cur_tokens, "logprobs": cur_lps,
+                                     "positions": cur_pos, "t0": t0, "t1": cs})
+                cur_tokens, cur_lps, cur_pos = [], [], []
+                open_seg = False
+            else:
+                t0 = cs
+                open_seg = True
+        else:
+            cur_tokens.append(t_id)
+            cur_lps.append(float(lp))
+            cur_pos.append(pos)
+    if cur_tokens:
+        # Unterminated trailing segment: close at window end.
+        segments.append({"tokens": cur_tokens, "logprobs": cur_lps, "positions": cur_pos,
+                         "t0": t0, "t1": window_dur_cs})
+        advance = window_dur_cs
+    else:
+        advance = last_ts if last_ts > 0 else window_dur_cs
+    return segments, max(advance, 1)

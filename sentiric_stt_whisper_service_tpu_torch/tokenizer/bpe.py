@@ -5,18 +5,21 @@ copy needs no ``tiktoken``: decoding concatenates the byte strings of the
 inverted rank table, and encoding runs the same pre-split and the same
 lowest-rank-first pair merging as tiktoken over the same ranks.
 
-Vocab sources: any rank table (``WhisperTokenizer(ranks)``) or the offline
-byte-fallback vocab. The checkpoint vocab readers of the JAX package (GGML,
-HF ``vocab.json``, ``*.tiktoken``) come with the checkpoint loaders.
+Vocab sources, as in the JAX package: a GGML checkpoint's embedded vocab
+(rank-ordered byte strings), HF-style ``vocab.json`` on disk, a
+``*.tiktoken`` ranks file, any rank table (``WhisperTokenizer(ranks)``), or
+the offline byte-fallback vocab.
 """
 
 from __future__ import annotations
 
+import base64
 import functools
+import json
 import re
 import sys
 import unicodedata
-from typing import Iterable, Optional
+from typing import Iterable, Optional, Sequence
 
 from .whisper_tokens import SpecialTokens, layout_for_vocab
 
@@ -63,6 +66,23 @@ def _split_regex() -> re.Pattern:
         rf"'s|'t|'re|'ve|'m|'ll|'d| ?[{letters}]+| ?[{numbers}]+"
         rf"| ?[^{space}{letters}{numbers}]+|[{space}]+(?![^{space}])|[{space}]+"
     )
+
+
+def _gpt2_byte_encoder() -> dict[int, str]:
+    """GPT-2's reversible byte↔unicode mapping (for vocab.json decoding)."""
+    bs = (
+        list(range(ord("!"), ord("~") + 1))
+        + list(range(ord("¡"), ord("¬") + 1))
+        + list(range(ord("®"), ord("ÿ") + 1))
+    )
+    cs = bs[:]
+    n = 0
+    for b in range(256):
+        if b not in bs:
+            bs.append(b)
+            cs.append(256 + n)
+            n += 1
+    return dict(zip(bs, [chr(c) for c in cs]))
 
 
 def _bpe_merge(ranks: dict[bytes, int], piece: bytes) -> list[int]:
@@ -188,6 +208,45 @@ class WhisperTokenizer:
         return tuple(sorted(result))
 
     # -- constructors -------------------------------------------------------
+    @classmethod
+    def from_ggml_vocab(cls, tokens: Sequence[bytes], n_vocab: int) -> "WhisperTokenizer":
+        """Build from a GGML checkpoint's embedded vocab (rank order).
+
+        ``tokens`` are the raw byte strings stored in the .bin file;
+        ``n_vocab`` is the model's full vocab size (incl. specials).
+        """
+        layout = layout_for_vocab(n_vocab)
+        base = tokens[: layout.base_vocab]
+        ranks = {bytes(t): i for i, t in enumerate(base)}
+        if len(ranks) != layout.base_vocab:
+            raise ValueError("duplicate tokens in GGML vocab")
+        return cls(ranks, layout.num_languages)
+
+    @classmethod
+    def from_hf_files(cls, vocab_json: str, num_languages: int = 99):
+        """Build from HF-style vocab.json (gpt2 byte-encoder strings)."""
+        with open(vocab_json, encoding="utf-8") as f:
+            vocab = json.load(f)
+        byte_dec = {v: k for k, v in _gpt2_byte_encoder().items()}
+        ranks: dict[bytes, int] = {}
+        for tok_str, rank in vocab.items():
+            if tok_str.startswith("<|"):
+                continue  # specials are derived from the layout
+            ranks[bytes(byte_dec[c] for c in tok_str)] = rank
+        return cls(ranks, num_languages)
+
+    @classmethod
+    def from_tiktoken_file(cls, path: str, num_languages: int = 99):
+        """Build from a ``*.tiktoken`` ranks file (base64 token, rank per line)."""
+        ranks = {}
+        with open(path, "rb") as f:
+            for line in f:
+                if not line.strip():
+                    continue
+                tok, rank = line.split()
+                ranks[base64.b64decode(tok)] = int(rank)
+        return cls(ranks, num_languages)
+
     @classmethod
     def byte_fallback(cls, base_vocab: int = 256, num_languages: int = 99):
         """Offline test tokenizer: 256 single-byte tokens (+ padding ranks).

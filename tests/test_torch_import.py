@@ -26,6 +26,19 @@ MODULES = [
     "sentiric_stt_whisper_service_tpu_torch.ops.flash_attention",
     "sentiric_stt_whisper_service_tpu_torch.ops.fused_mel",
     "sentiric_stt_whisper_service_tpu_torch.tokenizer",
+    "sentiric_stt_whisper_service_tpu_torch.audio.resample",
+    "sentiric_stt_whisper_service_tpu_torch.checkpoint",
+    "sentiric_stt_whisper_service_tpu_torch.checkpoint.ggml",
+    "sentiric_stt_whisper_service_tpu_torch.checkpoint.manager",
+    "sentiric_stt_whisper_service_tpu_torch.checkpoint.safetensors_io",
+    "sentiric_stt_whisper_service_tpu_torch.config",
+    "sentiric_stt_whisper_service_tpu_torch.diarize",
+    "sentiric_stt_whisper_service_tpu_torch.models.timestamps",
+    "sentiric_stt_whisper_service_tpu_torch.prosody.extractor",
+    "sentiric_stt_whisper_service_tpu_torch.runtime",
+    "sentiric_stt_whisper_service_tpu_torch.runtime.engine",
+    "sentiric_stt_whisper_service_tpu_torch.runtime.vad",
+    "sentiric_stt_whisper_service_tpu_torch.text",
 ]
 
 
@@ -50,7 +63,8 @@ def test_import_leaves_out_jax_and_the_reference():
 
 @pytest.mark.parametrize(
     "needle", ["import jax", "from jax", "scaled_dot_product_attention", "torch.compile",
-               "sentiric_stt_whisper_service_tpu.", "import tiktoken"],
+               "sentiric_stt_whisper_service_tpu.", "import tiktoken", "from safetensors",
+               "import safetensors"],
 )
 def test_port_sources_avoid(needle):
     # chip_smoke.py times PyTorch's attention call beside the kernels as a
