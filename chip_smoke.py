@@ -17,7 +17,9 @@ JAX package) and fails with a non-zero exit on the first phase that fails:
    bf16, causal and int8 forms, K4 int4 decode attention, K5 beam
    self-attention in its bf16 and int8 forms at two read bounds, K6 beam
    cross-attention in its bf16, int8 and int4 forms; K5 and K6 again at
-   beam 9, two groups of query beams) against its plain
+   beam 9, two groups of query beams; and at phase 7's shapes: K2 over an
+   admission tick of 8 windows, K3 int8 and K4 over a pool of 8 slots, K5
+   and K6 at the gang's bucket of 8 items x 5 beams) against its plain
    PyTorch version on the same inputs, with the stated tolerance; each one's
    median time per call beside the plain version's, the time of one PyTorch
    call that computes the same function where there is one, and the bound:
@@ -77,7 +79,37 @@ JAX package) and fails with a non-zero exit on the first phase that fails:
    reference's long-form loop closes an unterminated trailing segment at
    the window's audio end even when its opening timestamp lies later, so
    t1 < t0 can occur with random weights, in the JAX package too; such
-   segments are counted, not refused.)
+   segments are counted, not refused.) Phase 6's engines run at
+   ``parallel_requests=1``: one request at a time on the engine's own graph
+   classes;
+7. concurrency: the engine at ``parallel_requests=8``, ``max_batch_size=8``
+   (otherwise phase 6's settings), eight requests started together from
+   eight threads (phase 6's 5, 12, 21 and 30 s, 10 s at 8 kHz and 50 s
+   sequential clips, and two more 30 s clips). Greedy (path
+   ``concurrent_greedy``: K1, K2, K4) rides the continuous batcher's int4
+   pool (``runtime/batcher.py``, warmed up): each request's wall beside its
+   phase 6 wall, the set's wall and audio-s/s beside phase 6's set, the
+   graphed step ms by number of live slots, slots live per step, the pool's
+   bytes, then the device's idle share over a 32-token set under
+   ``torch.profiler``. Two parked pools driven tick by tick with the same
+   admissions (eight windows, 32 tokens) check that the graphed pool equals
+   an eager one (``graph=False``) bit for bit and that each request's
+   first-step logits lie within 0.25 x the logits' std of a solo B = 1
+   prefill (printing the common token prefix with a solo ``decode_window``),
+   and that an aborted request resolves None and frees its slot for a
+   queued ninth while the others finish. An int8 engine, not warmed up (its
+   pool is built and captured under load), runs the set at 16 tokens (path
+   ``concurrent_greedy_int8``: K3). Beam 5 rides the beam gang (path
+   ``concurrent_beam``: K1, K2, K5, K6; its batch buckets captured in
+   ``warmup()``): the gangs formed and their buckets, the walls, and each
+   gang class's static buffers. Every future must resolve and every request
+   keep segments. Apart from each path's counts, the launches of the
+   pools' and the gang's own step graphs (paths ``concurrent_greedy_pool``,
+   ``concurrent_greedy_int8_pool``, ``concurrent_beam_gang``) must show K4
+   (not K3) in the int4 pool, K3 (not K4) in the int8 pool, K5 and K6 in
+   the gang: the request threads' language detection launches K3 / K4 at
+   B = 1 besides. (``chip_threads.py`` measures the two choices behind the
+   concurrent paths' reads and eager stages.)
 
 ``--kernels-of DIR`` runs phases 1–3 only, with the package of the checkout
 in ``DIR``, and ends with the checks as one JSON list; ``--compare DIR`` runs
@@ -86,7 +118,8 @@ prints the times side by side: the way to hold a change against its parent
 commit on one card.
 
 Each path (greedy int4, greedy int8, greedy bf16, beam 5, engine greedy,
-engine beam) has its own launch counts, set to 0 just before its (first) run and read just after it; each
+engine beam, concurrent greedy, concurrent greedy int8, concurrent beam,
+and the concurrent pools' and gang's own) has its own launch counts, set to 0 just before its (first) run and read just after it; each
 run must launch every kernel of its path. A graph replay adds the launches
 its capture counted. ``--profile`` runs phase 3, then replaces phases 4–5
 with a breakdown of both slices (the greedy one with the int4 and the int8
@@ -386,6 +419,17 @@ def check_kernels(torch, np) -> list[dict]:
            (nbytes(q, k, v, q), 4 * B_ * H_ * L_ * L_ * D_, "bf16"),
            library_fn=lambda: F_.scaled_dot_product_attention(q, k, v, scale=1.0),
            kernel="flash_attention", main=True)
+    # ... and at an admission tick's N = 8 windows (phase 7's pools).
+    shape8 = (CONCURRENT, *shape[1:])
+    q8, k8_ = ((torch.randn(shape8, generator=g, device=dev) * 0.3).bfloat16() for _ in range(2))
+    v8_ = torch.randn(shape8, generator=g, device=dev).bfloat16()
+    record(f"K2 flash_attention [{CONCURRENT},20,1500,64]",
+           lambda: flash_attention(q8, k8_, v8_), lambda: attention_reference(q8, k8_, v8_),
+           lambda peak: 2**-5 * peak,
+           "4 bf16 steps at max |plain|: weights and output rounded to bf16",
+           (nbytes(q8, k8_, v8_, q8), 4 * CONCURRENT * H_ * L_ * L_ * D_, "bf16"),
+           library_fn=lambda: F_.scaled_dot_product_attention(q8, k8_, v8_, scale=1.0),
+           kernel="flash_attention")
 
     # K3 / K4: the decode step's cross read, [S=4, H=20, hd=64, F=1500].
     S, H, HD, F = N_REQUESTS, 20, 64, 1500
@@ -432,6 +476,25 @@ def check_kernels(torch, np) -> list[dict]:
                q1, unpack_nibbles_i8(k4), unpack_nibbles_i8(v4), k4s, v4s, scale=scale),
            tol, why, (nbytes(q1, k4, v4, k4s, v4s, q1), slab_ops, "int8"),
            cold=(k4_call, (q1, k4, v4, k4s, v4s)), kernel="decode_attention_i4", main=True)
+    # ... and at the pool's S = 8 slots (phase 7): K4 over the int4 pool,
+    # K3 over the int8 one.
+    S8 = CONCURRENT
+    q1_8 = torch.randn((S8, H, HD), generator=g, device=dev).bfloat16()
+    ks_8 = torch.randn((S8, H, HD, F), generator=g, device=dev)
+    vs_8 = torch.randn((S8, H, HD, F), generator=g, device=dev)
+    k8_8, k8s_8 = quantize_weight(ks_8, axis=-2)
+    v8_8, v8s_8 = quantize_weight(vs_8, axis=-2)
+    record(f"K3 decode_attention int8 S={S8}", lambda: k3(q1_8, k8_8, v8_8, k8s_8, v8s_8),
+           lambda: da.decode_attention_reference(q1_8, k8_8, v8_8, k8s_8, v8s_8, scale=scale),
+           tol, why, (nbytes(q1_8, k8_8, v8_8, k8s_8, v8s_8, q1_8), slab_ops * S8 // S, "int8"),
+           cold=(k3, (q1_8, k8_8, v8_8, k8s_8, v8s_8)), kernel="decode_attention")
+    k4_8, k4s_8 = _quantize_kv(ks_8, 4)
+    v4_8, v4s_8 = _quantize_kv(vs_8, 4)
+    record(f"K4 decode_attention_i4 S={S8}", lambda: k4_call(q1_8, k4_8, v4_8, k4s_8, v4s_8),
+           lambda: da.decode_attention_reference(
+               q1_8, unpack_nibbles_i8(k4_8), unpack_nibbles_i8(v4_8), k4s_8, v4s_8, scale=scale),
+           tol, why, (nbytes(q1_8, k4_8, v4_8, k4s_8, v4s_8, q1_8), slab_ops * S8 // S, "int8"),
+           cold=(k4_call, (q1_8, k4_8, v4_8, k4s_8, v4s_8)), kernel="decode_attention_i4")
 
     # K5: the beam step's self read at the beam slice's shapes: 4 items x 5
     # beams, slot caches of 160 rows (128 tokens after a 3-token prompt),
@@ -510,6 +573,34 @@ def check_kernels(torch, np) -> list[dict]:
                q6, unpack_nibbles_i8(k4), unpack_nibbles_i8(v4), k4s, v4s, scale=scale),
            tol6, why6, (nbytes(q6, k4, v4, k4s, v4s, q6), cross_ops, "int8"),
            cold=(k6_i4, (q6, k4, v4, k4s, v4s)), kernel="beam_cross_attention", main=True)
+
+    # K5 and K6 at the gang's largest bucket (phase 7): B = 8 items x 5
+    # beams, the slot caches of a 224-token budget (256 rows) at both read
+    # bounds (K5, bf16 as the gang stores them), and K6 over an int4 slab of
+    # 8 items.
+    B8, C8 = CONCURRENT, 256
+    qg = torch.randn((B8 * K, H, HD), generator=g, device=dev).bfloat16()
+    kg, vg = ((torch.randn((B8 * K, H, C8, HD), generator=g, device=dev) * 0.3).bfloat16()
+              for _ in range(2))
+    for c_valid, at in ((128, 100), (256, 230)):
+        src = torch.randint(0, K, (B8, K, C8), generator=g, device=dev)
+        ancg = F_.one_hot(src, K).permute(0, 1, 3, 2).bool().contiguous()
+        ancg[..., at:] = False
+        read = ancg[..., :c_valid]
+        rows_read, entries = int(read.any(dim=1).sum()) * H, int(read.sum()) * H
+        k5_g = functools.partial(ba.beam_attention, beam_size=K, scale=scale, c_valid=c_valid)
+        record(f"K5 beam_attention bf16 B={B8} c_valid={c_valid}",
+               functools.partial(k5_g, qg, kg, vg, ancg),
+               functools.partial(ba.beam_attention_reference, qg, kg, vg, ancg, K, scale,
+                                 c_valid),
+               tol, why, (nbytes(qg, qg, read) + rows_read * HD * 2 * 2, 4 * HD * entries, "bf16"),
+               cold=(k5_g, (qg, kg, vg, ancg)), kernel="beam_attention")
+    q6_8 = torch.randn((B8, H, K, HD), generator=g, device=dev).bfloat16()
+    record(f"K6 beam_cross_attention int4 B={B8}", lambda: k6_i4(q6_8, k4_8, v4_8, k4s_8, v4s_8),
+           lambda: ba.beam_cross_attention_reference(
+               q6_8, unpack_nibbles_i8(k4_8), unpack_nibbles_i8(v4_8), k4s_8, v4s_8, scale=scale),
+           tol6, why6, (nbytes(q6_8, k4_8, v4_8, k4s_8, v4s_8, q6_8), cross_ops * B8 // S, "int8"),
+           cold=(k6_i4, (q6_8, k4_8, v4_8, k4s_8, v4s_8)), kernel="beam_cross_attention")
 
     # K5 and K6 at beam 9: two groups of query beams per (item, head), each
     # over all 9 slots (K5) or the whole slab (K6). A package that refuses
@@ -872,7 +963,11 @@ def run(torch, np, profile: bool = False, kernels_only: bool = False) -> int:
 
     print(f"== 6. engine: large-v3, int4 compute, VAD, diarization, language auto, token "
           f"timestamps [{card}]")
-    engine_phase(torch, np, model, paths, card)
+    requests, sequential = engine_phase(torch, np, model, paths, card)
+
+    print(f"== 7. concurrency: large-v3, int4 compute, parallel_requests {CONCURRENT}, "
+          f"max_batch_size {CONCURRENT}: the continuous batcher and the beam gang [{card}]")
+    concurrency_phase(torch, np, model, paths, card, requests, sequential)
 
     kernels_json = []
     for name, (src, replaces, path) in SOURCES.items():
@@ -934,9 +1029,11 @@ def engine_phase(torch, np, model, paths, card) -> None:
 
     relaxed = dict(quality_gate="off", logprob_threshold=-1e9, no_speech_threshold=1.0,
                    min_segment_avg_prob=0.0)
+    # One request at a time on the engine's own graph classes (phase 7 runs
+    # the concurrent paths).
     base = Settings(device="auto", compute_type="int4", enable_vad=True,
                     enable_diarization=True, language="auto", no_timestamps=False,
-                    model_filename="ggml-large-v3.bin")
+                    model_filename="ggml-large-v3.bin", parallel_requests=1)
     require(base.beam_size == BEAM, "the default beam size moved")
 
     rng = np.random.default_rng(SEED + 6)
@@ -954,10 +1051,13 @@ def engine_phase(torch, np, model, paths, card) -> None:
         require(d.is_valid and d.sample_rate == rate, f"{label}: WAV round trip failed")
         requests.append((label, d.pcm_data, rate, opts))
 
+    sequential = {}  # path -> (audio s, wall s, {label: wall s})
+
     def run_set(path, engine, beam):
         print(f"  [{path}] warmup(): {engine.warmup():.2f} s [{card}]")
         kernels.reset_launch_counts()
         total_audio = total_wall = 0.0
+        walls = {}
         for label, pcm, rate, opts in requests:
             m = PerformanceMetrics()
             torch.cuda.synchronize()
@@ -968,6 +1068,7 @@ def engine_phase(torch, np, model, paths, card) -> None:
             seconds = len(pcm) / rate
             total_audio += seconds
             total_wall += wall
+            walls[label] = wall
             stages = ", ".join(f"{k} {v:.1f}" for k, v in m.stages_ms.items())
             n_tok = sum(r.token_count for r in res)
             print(f"  [{path}] {label}: wall {wall:.3f} s, {seconds:.1f} audio-s, "
@@ -976,6 +1077,7 @@ def engine_phase(torch, np, model, paths, card) -> None:
             check_results(path, label, res, seconds, silent="silence" in label)
         counts = dict(kernels.LAUNCHES)
         paths[path] = counts
+        sequential[path] = (total_audio, total_wall, walls)
         print(f"  [{path}] {len(requests)} requests, {total_audio:.1f} audio-s in "
               f"{total_wall:.2f} s: {total_audio / total_wall:.2f} audio-s/s [{card}]; "
               f"launches {counts}")
@@ -1089,6 +1191,337 @@ def engine_phase(torch, np, model, paths, card) -> None:
         print(f"  [engine default gates] graph class {st['key'][0]} rows {st['key'][2]}: "
               f"captured in {st['capture_s']:.2f} s, static buffers "
               f"{st['static_bytes'] / 2**20:.1f} MiB")
+    for engine in (eng_greedy, eng_beam, eng_default):
+        engine.shutdown()
+    return requests, sequential
+
+
+CONCURRENT = 8  # phase 7: parallel_requests and max_batch_size (the pool's slots)
+EQUAL_TOKENS = 32  # phase 7: the graphed-vs-eager pool, the solo comparison and the abort run
+INT8_TOKENS = 16  # phase 7: the int8 pool's run (K3 on the batcher)
+PROFILE_TOKENS = 32  # phase 7: the profiled greedy set (idle share)
+
+
+def concurrency_phase(torch, np, model, paths, card, requests, sequential) -> None:
+    """Phase 7: concurrent requests on the card (see the module docstring)."""
+    import collections
+    import dataclasses
+    import threading
+
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    from sentiric_stt_whisper_service_tpu_torch import kernels
+    from sentiric_stt_whisper_service_tpu_torch.audio import parse_wav_robust, write_wav
+    from sentiric_stt_whisper_service_tpu_torch.config import Settings
+    from sentiric_stt_whisper_service_tpu_torch.models import (
+        DecodeGraphs,
+        decode_window,
+        decoder_apply,
+        encode_xa_kv_q,
+        init_kv_cache,
+    )
+    from sentiric_stt_whisper_service_tpu_torch.models.graphs import StepLoop
+    from sentiric_stt_whisper_service_tpu_torch.ops import compute_log_mel, pad_or_trim
+    from sentiric_stt_whisper_service_tpu_torch.runtime import (
+        PerformanceMetrics,
+        RequestOptions,
+        SttEngine,
+    )
+    from sentiric_stt_whisper_service_tpu_torch.runtime.batcher import ContinuousBatcher
+
+    relaxed = dict(quality_gate="off", logprob_threshold=-1e9, no_speech_threshold=1.0,
+                   min_segment_avg_prob=0.0)
+    dev, cfg = model.decoder.pos_emb.device, model.cfg
+    base = Settings(device=dev.type, compute_type="int4", enable_vad=True,
+                    enable_diarization=True, language="auto", no_timestamps=False,
+                    model_filename="ggml-large-v3.bin", parallel_requests=CONCURRENT,
+                    max_batch_size=CONCURRENT, request_queue_timeout_ms=600_000, **relaxed)
+    keep = ("5 s", "12 s", "21 s", "30 s", "10 s at 8 kHz", "50 s sequential")
+    reqs = [r for r in requests if r[0] in keep]
+    rng = np.random.default_rng(SEED + 7)
+    for k in range(2):
+        buf = io.BytesIO()
+        write_wav(buf, voiced_like(rng, 30.0))
+        d = parse_wav_robust(buf.getvalue())
+        reqs.append((f"30 s #{k + 2}", d.pcm_data, 16000, dict(condition_on_previous_text=True)))
+    require(len(reqs) == CONCURRENT, f"phase 7 has {len(reqs)} requests")
+    audio_s = sum(len(pcm) / rate for _, pcm, rate, _ in reqs)
+    f8 = torch.float8_e4m3fn
+
+    def run_concurrent(path, engine, beam, tokens=-1):
+        """Every request in its own thread, started together; returns the
+        set's wall and each request's wall (s)."""
+        n = len(reqs)
+        results, walls, errors = [None] * n, [None] * n, []
+        metrics = [PerformanceMetrics() for _ in range(n)]
+        start = threading.Barrier(n + 1)
+
+        def go(i):
+            _, pcm, rate, opts = reqs[i]
+            try:
+                start.wait(timeout=120)
+                t = time.perf_counter()
+                results[i] = engine.transcribe_pcm16(
+                    pcm, rate, RequestOptions(beam_size=beam, max_decode_tokens=tokens, **opts),
+                    metrics[i])
+                walls[i] = time.perf_counter() - t
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(f"{reqs[i][0]}: {type(e).__name__}: {e}")
+
+        threads = [threading.Thread(target=go, args=(i,)) for i in range(n)]
+        for th in threads:
+            th.start()
+        start.wait(timeout=120)
+        t0 = time.perf_counter()
+        for th in threads:
+            th.join(timeout=600)
+        wall = time.perf_counter() - t0
+        require(not any(th.is_alive() for th in threads), f"{path}: a request never returned")
+        require(not errors, f"{path}: requests failed: {errors}")
+        for (label, _, _, _), res in zip(reqs, results):
+            require(bool(res), f"{path} {label}: no segment under relaxed gates")
+            require(all(r.t0 >= 0 and r.t1 >= 0 for r in res)
+                    and all(b.t0 >= a.t0 for a, b in zip(res, res[1:])),
+                    f"{path} {label}: segment times out of order or negative")
+        return wall, walls, metrics
+
+    def report_set(path, seq_path, wall, walls, metrics, tokens):
+        seq_audio, seq_wall, seq_walls = sequential[seq_path]
+        for (label, _, _, _), w, m in zip(reqs, walls, metrics):
+            alone = seq_walls.get(label)
+            stages = ", ".join(f"{k} {v:.1f}" for k, v in m.stages_ms.items())
+            print(f"  [{path}] {label}: wall {w:.3f} s"
+                  f"{f' (phase 6, alone: {alone:.3f} s)' if alone is not None else ''}; stages ms: "
+                  f"{stages} [{card}]")
+        print(f"  [{path}] {len(reqs)} concurrent requests, {audio_s:.1f} audio-s in {wall:.3f} s: "
+              f"{audio_s / wall:.2f} audio-s/s{'' if tokens < 0 else f' ({tokens}-token cap)'}; "
+              f"phase 6 one at a time: {seq_audio:.1f} audio-s in {seq_wall:.2f} s, "
+              f"{seq_audio / seq_wall:.2f} audio-s/s [{card}]")
+
+    def chunk_stats(pool):
+        """Wraps the pool's chunk to record (live slots, seconds) per chunk."""
+        stats, chunk = [], pool._chunk
+
+        def timed(live):
+            t = time.perf_counter()
+            out = chunk(live)
+            stats.append((len(live), time.perf_counter() - t))
+            return out
+
+        pool._chunk = timed
+        return stats
+
+    def need(path, names):
+        for name in names:
+            require(paths[path][name] > 0, f"{path}: kernel {name} was not launched")
+
+    # The pools' and the gang's own launches, apart from the request threads'
+    # (whose language detection launches K3 / K4 at B = 1): the counts that
+    # each step graph's replays add, per loop.
+    own = collections.defaultdict(collections.Counter)  # id(StepLoop) -> launches
+    advance = StepLoop.advance
+
+    def counted(loop, bound):
+        advance(loop, bound)
+        if loop.graphs is not None:
+            own[id(loop)].update(loop.graphs[bound][1])
+
+    StepLoop.advance = counted
+
+    def owned(path, loops, names, absent=()):
+        """The launches of ``loops`` since the last reset as path ``path``;
+        each of ``names`` launched, none of ``absent``."""
+        paths[path] = {k: sum(own[id(lp)][k] for lp in loops) for k in kernels.LAUNCHES}
+        need(path, names)
+        for name in absent:
+            require(paths[path][name] == 0, f"{path}: kernel {name} was launched")
+        print(f"  [{path}] launches of its own step graphs: {paths[path]}")
+
+    def reset_counts():
+        kernels.reset_launch_counts()
+        own.clear()
+
+    # -- greedy through the batcher (int4 pool: K1, K2, K4) ---------------
+    eng = SttEngine(dataclasses.replace(base, beam_size=1), model_name="large-v3", params=model)
+    print(f"  [concurrent_greedy] warmup(): {eng.warmup():.2f} s (the pool's step graphs "
+          f"included) [{card}]")
+    pool = eng._batchers[cfg.n_audio_ctx]
+    print(f"  [concurrent_greedy] pool: {pool.S} slots, cache {pool.cache_len} rows, int4 carrier "
+          f"+ fp8 self cache: {pool.pool_bytes / 2**20:.1f} MiB of state; {len(pool.bounds)} "
+          f"step graphs (read bounds {pool.bounds}), graph pool grown by "
+          f"{pool.graph_pool_bytes / 2**20:.1f} MiB [{card}]")
+    stats = chunk_stats(pool)
+    reset_counts()
+    wall, walls, metrics = run_concurrent("concurrent_greedy", eng, 1)
+    paths["concurrent_greedy"] = dict(kernels.LAUNCHES)
+    report_set("concurrent_greedy", "engine_greedy", wall, walls, metrics, -1)
+    need("concurrent_greedy", ("log_mel", "flash_attention", "decode_attention_i4"))
+    owned("concurrent_greedy_pool", [pool._loop], ("decode_attention_i4",), ("decode_attention",))
+    require(stats, "concurrent_greedy: the batcher ran no chunk")
+    steps = pool.steps_per_sync
+    by_live = {}
+    for n_live, sec in stats:
+        by_live.setdefault(n_live, []).append(sec * 1e3 / steps)
+    print(f"  [concurrent_greedy] graphed step ms by live slots (median over chunks of {steps} "
+          f"steps, the device read included): " + ", ".join(
+              f"{k}: {statistics.median(v):.2f} ({len(v)} chunks)"
+              for k, v in sorted(by_live.items())) + f" [{card}]")
+    total_steps = steps * len(stats)
+    print(f"  [concurrent_greedy] slots live per step: mean "
+          f"{sum(n for n, _ in stats) * steps / total_steps:.2f} over {total_steps} steps; "
+          f"launches {paths['concurrent_greedy']}")
+
+    # The device's idle share over a capped set, under the profiler.
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        pwall, _, _ = run_concurrent("concurrent_greedy (profiled)", eng, 1, PROFILE_TOKENS)
+    busy_ms = sum(e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    print(f"  [concurrent_greedy] under the profiler, {PROFILE_TOKENS}-token cap: set wall "
+          f"{pwall * 1e3:.1f} ms, device busy {busy_ms:.1f} ms, idle "
+          f"{100 * (1 - busy_ms / (pwall * 1e3)):.1f} % [{card}]")
+    del prof
+
+    # Graphed pool = eager pool on the same admissions (ticks driven here),
+    # each request's first-step logits against its solo prefill, and an abort.
+    ids, sup = eng.ids, eng.suppress_mask
+    sot = list(eng.tokenizer.sot_sequence("en"))
+    sb = len(sot)
+    windows = [pad_or_trim(voiced_like(rng, 30.0)) for _ in range(CONCURRENT)]
+
+    def drive(pool_, abort_after=None):
+        """The windows into a parked pool: one admission tick (its first-step
+        logits read back), then ticks until every future resolves."""
+        pool_._stop.set()
+        pool_._wake.set()
+        pool_._thread.join(timeout=10)
+        polls = []
+
+        def abort():
+            polls.append(1)
+            return len(polls) > abort_after
+
+        futs = [pool_.submit(w, sot, 0, max_tokens=EQUAL_TOKENS,
+                             should_abort=abort if (abort_after and i == 0) else None)
+                for i, w in enumerate(windows)]
+        late = pool_.submit(windows[0], sot, 0, max_tokens=EQUAL_TOKENS) if abort_after else None
+        pool_._admit_queued()
+        slot_of = {id(r.future): s for s, r in enumerate(pool_._slot_req) if r is not None}
+        order = [slot_of[id(f)] for f in futs]  # request -> slot
+        first = pool_.state.last_logits.clone()
+        late_slot = None
+        for _ in range(4 * EQUAL_TOKENS):
+            pool_._worker_tick()
+            if late is not None and late_slot is None:
+                late_slot = next((s for s, r in enumerate(pool_._slot_req)
+                                  if r is not None and r.future is late), None)
+            if all(f.done() for f in futs) and (late is None or late.done()):
+                break
+        return futs, first, order, late, late_slot
+
+    with torch.inference_mode():
+        graphed_pool = ContinuousBatcher(cfg, model, ids, sup, max_slots=CONCURRENT,
+                                         kv_bits=4, self_dtype=f8)
+        eager_pool = ContinuousBatcher(cfg, model, ids, sup, max_slots=CONCURRENT,
+                                       kv_bits=4, self_dtype=f8, graph=False)
+        g_futs, first, order, _, _ = drive(graphed_pool)
+        e_futs, _, _, _, _ = drive(eager_pool)
+        eager_pool.shutdown()
+        for i, (g, e) in enumerate(zip(g_futs, e_futs)):
+            a, b = g.result(timeout=1), e.result(timeout=1)
+            require(np.array_equal(a["tokens"], b["tokens"])
+                    and np.array_equal(a["token_logprobs"], b["token_logprobs"])
+                    and a["sum_logprob"] == b["sum_logprob"],
+                    f"request {i}: the graphed pool's result differs from the eager pool's")
+        print(f"  [pool, graphed vs eager] {CONCURRENT} windows admitted together, "
+              f"{EQUAL_TOKENS} tokens: token ids, log-probabilities and sums equal bit for bit")
+        diffs, prefixes, graphs = [], [], DecodeGraphs()
+        for i, w in enumerate(windows):
+            audio = torch.from_numpy(w[None]).to(dev)
+            xa1 = encode_xa_kv_q(cfg, model, compute_log_mel(audio, n_mels=cfg.n_mels,
+                                                             dtype=cfg.dtype), 4)
+            prompt = torch.tensor([sot], device=dev)
+            solo_logits, _ = decoder_apply(cfg, model, prompt, 0,
+                                           init_kv_cache(cfg, 1, 4, dtype=f8, device=dev), xa1)
+            ref_l, got_l = solo_logits[0, sb - 1], first[order[i]]
+            diffs.append(((ref_l - got_l).abs().max().item(), ref_l.std().item(),
+                          bool(ref_l.argmax() == got_l.argmax())))
+            tinit = torch.full((1, cfg.n_text_ctx), ids.eot, dtype=torch.int64, device=dev)
+            tinit[0, :sb] = prompt[0]
+            solo = decode_window(cfg, model, xa1, tinit, sb, 0, ids, sup,
+                                 max_len=sb + EQUAL_TOKENS, self_dtype=f8, graphs=graphs)
+            want = solo.tokens[0, sb : int(solo.lengths[0])].cpu().numpy()
+            got = g_futs[i].result(timeout=1)["tokens"]
+            k = 0
+            while k < min(len(want), len(got)) and want[k] == got[k]:
+                k += 1
+            prefixes.append(k)
+        worst = max(d / sd for d, sd, _ in diffs)
+        print(f"  [pool vs solo] first-step logits (pool: N = {CONCURRENT} encode and prefill; "
+              f"solo: B = 1): max |diff| {max(d for d, _, _ in diffs):.4f}, at most "
+              f"{worst:.3f} x the logits' std (bound 0.25), argmax agreeing in "
+              f"{sum(a for _, _, a in diffs)} of {len(diffs)}; common token prefix with a solo "
+              f"decode_window of {EQUAL_TOKENS} tokens: {prefixes}")
+        require(worst <= 0.25, f"pool vs solo: first-step logits differ by {worst:.3f} x std")
+
+        a_futs, _, order, late, late_slot = drive(graphed_pool, abort_after=2)
+        require(a_futs[0].result(timeout=1) is None, "abort: the aborted request did not resolve None")
+        require(all(f.result(timeout=1) is not None for f in a_futs[1:])
+                and late.result(timeout=1) is not None, "abort: the others did not finish")
+        require(late_slot == order[0], f"abort: the queued request went to slot {late_slot}, not "
+                f"the aborted request's {order[0]}")
+        print(f"  [pool, abort] the request in slot {order[0]} aborted after two polls "
+              f"(resolved None); the ninth request took its slot while the other seven finished")
+
+        graphed_pool.shutdown()
+        del graphed_pool, eager_pool, graphs
+
+    # -- greedy on an int8 pool (K3), built and captured under load -------
+    eng8 = SttEngine(dataclasses.replace(base, beam_size=1, compute_type="int8"),
+                     model_name="large-v3", params=model)
+    reset_counts()
+    wall8, walls8, _ = run_concurrent("concurrent_greedy_int8", eng8, 1, INT8_TOKENS)
+    paths["concurrent_greedy_int8"] = dict(kernels.LAUNCHES)
+    need("concurrent_greedy_int8", ("log_mel", "flash_attention", "decode_attention"))
+    owned("concurrent_greedy_int8_pool", [eng8._batchers[cfg.n_audio_ctx]._loop],
+          ("decode_attention",), ("decode_attention_i4",))
+    print(f"  [concurrent_greedy_int8] no warmup (the pool is built and captured under load), "
+          f"{INT8_TOKENS}-token cap: set wall {wall8:.3f} s, request walls "
+          f"{', '.join(f'{w:.2f}' for w in walls8)} s; launches "
+          f"{paths['concurrent_greedy_int8']} [{card}]")
+    eng8.shutdown()
+    eng.shutdown()
+
+    # -- beam 5 through the gang (K1, K2, K5, K6) -------------------------
+    engb = SttEngine(base, model_name="large-v3", params=model)
+    print(f"  [concurrent_beam] warmup(): {engb.warmup():.2f} s (the gang's buckets "
+          f"included) [{card}]")
+    gang = engb._beam_gang
+    gangs, decode = [], gang._decode
+
+    def recording(members):
+        gangs.append((len(members), gang.batch_bucket(len(members))))
+        return decode(members)
+
+    gang._decode = recording
+    reset_counts()
+    wallb, wallsb, metricsb = run_concurrent("concurrent_beam", engb, BEAM)
+    paths["concurrent_beam"] = dict(kernels.LAUNCHES)
+    report_set("concurrent_beam", "engine_beam", wallb, wallsb, metricsb, -1)
+    need("concurrent_beam", ("log_mel", "flash_attention", "beam_attention",
+                             "beam_cross_attention"))
+    owned("concurrent_beam_gang", list(gang.graphs._loops.values()),
+          ("beam_attention", "beam_cross_attention"))
+    print(f"  [concurrent_beam] gangs formed (members -> bucket): "
+          f"{', '.join(f'{m}->{b}' for m, b in gangs)}; launches {paths['concurrent_beam']}")
+    for st in gang.graphs.stats():
+        print(f"  [concurrent_beam] gang class B = {st['key'][2]}: {st['graphs']} graph(s), "
+              f"captured in {st['capture_s']:.2f} s, static buffers "
+              f"{st['static_bytes'] / 2**20:.1f} MiB, pool grown by "
+              f"{st['pool_bytes'] / 2**20:.1f} MiB [{card}]")
+    print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    engb.shutdown()
+    StepLoop.advance = advance
 
 
 def profile_slices(torch, cfg, model, audio, timed, card) -> None:

@@ -48,7 +48,7 @@ from typing import Optional
 
 import torch
 
-from .graphs import DecodeGraphs, read_bound, run_window, window_loop
+from .graphs import DecodeGraphs, read_bound, run_window, to_host, window_loop
 from .sampling import (
     NEG_INF,
     SYNC_STEPS,
@@ -195,7 +195,7 @@ def decode_window_beam(
                                   ids, K, prefill_len, max_len, kv_dtype)
 
     def finished() -> bool:
-        return early_stop and bool((st.bank_count >= K).all())
+        return early_stop and bool(to_host((st.bank_count >= K).all()))
 
     if not run_window(loop, sample_begin, max_len, bounds, finished, should_abort,
                       abort_chunk if should_abort else SYNC_STEPS):

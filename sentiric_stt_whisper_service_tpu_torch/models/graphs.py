@@ -31,17 +31,121 @@ the host replays.
   the graph, from a generator of the class registered with its graphs: the
   caller's state is copied into it before the replays and back after, so
   the caller's generator advances as an eager decode would advance it.
+* **Other threads.** A capture (``torch.cuda.graph``'s "global" mode)
+  fails, or takes in foreign work, if another thread launches, allocates,
+  copies or synchronises on the card meanwhile. Where several threads share
+  the card (the engine's requests, the continuous batcher's and the beam
+  gang's workers), each holds a :class:`DeviceLock` shared around its
+  device work, and a capture holds it exclusively. Copies between the host
+  and the card on those paths go through :func:`to_host` and
+  :func:`to_device`: a blocking copy issued while the stream is busy holds
+  up every other thread's launches until the stream drains (measured by
+  ``chip_threads.py``).
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
 from typing import Callable, Optional
 
 import torch
 
 from .. import kernels
+
+
+class DeviceLock:
+    """A reader–writer lock over the card: device work holds it shared, a
+    CUDA graph capture exclusively. Both are reentrant per thread, and a
+    thread that holds it shared may ask for it exclusively (it gives its
+    shared hold up while it waits, and takes it back after). A waiting
+    capture goes before new shared holders. A thread never waits on another
+    thread while it holds the lock shared."""
+
+    def __init__(self):
+        self._cond = threading.Condition()
+        self._readers = 0
+        self._writer: Optional[int] = None
+        self._writers_waiting = 0
+        self._local = threading.local()
+
+    @contextlib.contextmanager
+    def shared(self):
+        me = threading.get_ident()
+        depth = getattr(self._local, "depth", 0)
+        if depth or self._writer == me:  # nested in a hold of this thread
+            self._local.depth = depth + 1
+            try:
+                yield
+            finally:
+                self._local.depth -= 1
+            return
+        with self._cond:
+            while self._writer is not None or self._writers_waiting:
+                self._cond.wait()
+            self._readers += 1
+        self._local.depth = 1
+        try:
+            yield
+        finally:
+            self._local.depth = 0
+            with self._cond:
+                self._readers -= 1
+                self._cond.notify_all()
+
+    @contextlib.contextmanager
+    def exclusive(self):
+        me = threading.get_ident()
+        if self._writer == me:  # nested in this thread's exclusive hold
+            yield
+            return
+        depth = getattr(self._local, "depth", 0)
+        with self._cond:
+            if depth:  # give this thread's shared hold up while waiting
+                self._readers -= 1
+            self._writers_waiting += 1
+            while self._writer is not None or self._readers:
+                self._cond.wait()
+            self._writers_waiting -= 1
+            self._writer = me
+        self._local.depth = 0
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._writer = None
+                self._cond.notify_all()
+                if depth:  # take the shared hold back; waiting writers go first
+                    while self._writer is not None or self._writers_waiting:
+                        self._cond.wait()
+                    self._readers += 1
+            self._local.depth = depth
+
+
+def to_host(t: torch.Tensor) -> torch.Tensor:
+    """``t`` copied to the host. On the card the copy is queued into pinned
+    memory and the thread then waits on an event, which leaves the other
+    threads' launches free meanwhile (``.cpu()`` waits inside the copy and
+    stalls them)."""
+    if t.device.type != "cuda":
+        return t.clone()
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    done.synchronize()
+    return host
+
+
+def to_device(a, device: torch.device) -> torch.Tensor:
+    """A host array or tensor on ``device``: on the card through pinned
+    memory with a non-blocking copy (a copy from pageable memory waits for
+    the stream to drain first); on the CPU as it is."""
+    t = torch.as_tensor(a)
+    if torch.device(device).type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 def read_bound(pos: int, bounds) -> int:
@@ -155,9 +259,10 @@ class DecodeGraphs:
     memory pool. Keep one for the life of a model: a class is captured once,
     at its first request."""
 
-    def __init__(self):
+    def __init__(self, lock: Optional[DeviceLock] = None):
         self._loops: dict = {}
         self._pool = None
+        self._lock = lock  # held exclusively while a class captures
 
     def loop(self, key, make: Callable, inputs: dict, bounds, device: torch.device,
              own_generator: bool) -> StepLoop:
@@ -166,22 +271,27 @@ class DecodeGraphs:
         step) over the tensors it is given."""
         loop = self._loops.get(key)
         if loop is None:
-            torch.cuda.synchronize(device)
-            t0 = time.perf_counter()
-            if self._pool is None:
-                self._pool = torch.cuda.graph_pool_handle()
-            static = _tree_map(torch.empty_like, inputs)
-            static_bytes = _tree_bytes(static)
-            generator = torch.Generator(device=device) if own_generator else None
-            state, step = make(static, generator)
-            loop = StepLoop(state, static, step, generator)
-            loop.load(inputs)  # before the warm-up, which reads them
-            loop.pool_bytes = _capture(loop, bounds, self._pool)
-            loop.capture_s = time.perf_counter() - t0
-            loop.static_bytes = static_bytes + _tree_bytes(vars(state))
-            self._loops[key] = loop
+            with self._lock.exclusive() if self._lock else contextlib.nullcontext():
+                loop = self._new_loop(key, make, inputs, bounds, device, own_generator)
         else:
             loop.load(inputs)
+        return loop
+
+    def _new_loop(self, key, make, inputs, bounds, device, own_generator) -> StepLoop:
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        static = _tree_map(torch.empty_like, inputs)
+        static_bytes = _tree_bytes(static)
+        generator = torch.Generator(device=device) if own_generator else None
+        state, step = make(static, generator)
+        loop = StepLoop(state, static, step, generator)
+        loop.load(inputs)  # before the warm-up, which reads them
+        loop.pool_bytes = _capture(loop, bounds, self._pool)
+        loop.capture_s = time.perf_counter() - t0
+        loop.static_bytes = static_bytes + _tree_bytes(vars(state))
+        self._loops[key] = loop
         return loop
 
     def stats(self) -> list[dict]:

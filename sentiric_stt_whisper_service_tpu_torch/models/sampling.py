@@ -35,7 +35,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from .graphs import DecodeGraphs, run_window, window_loop
+from .graphs import DecodeGraphs, run_window, to_host, window_loop
 from .whisper import WhisperConfig, decoder_apply, decoder_step, init_kv_cache
 
 # Steps between two reads of the device when nothing is polled: each read
@@ -311,7 +311,8 @@ def decode_window(
     no_speech_probs = _decode_setup(cfg, model, st, xa_kv, tokens_init, sample_begin,
                                     sot_index, ids, prefill_len, hard_stop)
     with loop.drawing_from(generator):
-        if not run_window(loop, sample_begin, hard_stop, bounds, lambda: bool(st.done.all()),
+        if not run_window(loop, sample_begin, hard_stop, bounds,
+                          lambda: bool(to_host(st.done.all())),
                           should_abort, abort_chunk if should_abort else SYNC_STEPS):
             return None
     return _decode_result(st, no_speech_probs, sample_begin, ids)

@@ -18,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .graphs import to_device, to_host
 from .whisper import WhisperConfig, decoder_apply, init_kv_cache
 
 AUDIO_TIME_PER_FRAME = 0.02  # one encoder position = 20 ms
@@ -141,8 +142,7 @@ def compute_token_times(
     padded = np.zeros((min(align_bucket(T), cfg.n_text_ctx),), np.int64)
     padded[:T] = full_tokens
     device = next(iter(xa_kv.values())).device
-    toks = torch.from_numpy(padded[None]).to(device)
-    scores = alignment_scores(cfg, model, xa_kv, toks)[0].cpu().numpy()
+    scores = to_host(alignment_scores(cfg, model, xa_kv, to_device(padded[None], device))[0]).numpy()
     sampled_scores = scores[sample_begin:T]
     if sampled_scores.shape[0] == 0:
         return np.zeros((0, 2))

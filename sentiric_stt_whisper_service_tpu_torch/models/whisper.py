@@ -606,24 +606,34 @@ def decoder_apply(
 
 
 def pos_index(pos, device) -> torch.Tensor:
-    """A shared decode position as a ``[1]`` int64 tensor: a tensor (0-d or
-    ``[1]``, e.g. the loop's device scalar) as it is, an int made into one on
-    ``device``."""
+    """Decode positions as an int64 tensor: ``[S]`` per-row positions as
+    they are, a shared position (a 0-d or ``[1]`` tensor, e.g. the loop's
+    device scalar, or an int) as ``[1]`` on ``device``."""
     if isinstance(pos, torch.Tensor):
-        return pos.reshape(1).to(torch.int64)
-    return torch.tensor([int(pos)], dtype=torch.int64, device=device)
+        return pos.reshape(-1).to(torch.int64)
+    return torch.full((1,), int(pos), dtype=torch.int64, device=device)  # a fill, no copy
 
 
 _INT_OF_WIDTH = {1: torch.uint8, 2: torch.int16, 4: torch.int32}
 
 
-def _write_rows(cache: torch.Tensor, pos1: torch.Tensor, rows: torch.Tensor) -> None:
-    """``cache[:, :, pos] = rows`` in place for a device ``pos`` ([1] int64):
-    ``index_copy_`` along the position axis, on an integer view of the
-    storage's width so that every storage type (fp8 too) takes it.
-    cache [S, H, C, hd]; rows [S, H, hd]."""
-    it = _INT_OF_WIDTH[cache.element_size()]
-    cache.view(it).index_copy_(2, pos1, rows.to(cache.dtype)[:, :, None].view(it))
+def int_view(t: torch.Tensor) -> torch.Tensor:
+    """``t`` viewed as integers of its width: indexed writes
+    (``index_copy_``, ``index_put_``) take every storage type through it,
+    fp8 too."""
+    return t.view(_INT_OF_WIDTH[t.element_size()])
+
+
+def _write_rows(cache: torch.Tensor, at, rows: torch.Tensor) -> None:
+    """``cache[s, :, pos[s]] = rows[s]`` in place for device positions:
+    ``at`` a shared ``[1]`` position (``index_copy_`` along the position
+    axis) or the pair (arange(S), pos [S]) (``index_put_``); both on the
+    storage's ``int_view``. cache [S, H, C, hd]; rows [S, H, hd]."""
+    view, new = int_view(cache), int_view(rows.to(cache.dtype))
+    if isinstance(at, tuple):
+        view.transpose(1, 2).index_put_(at, new)
+    else:
+        view.index_copy_(2, at, new[:, :, None])
 
 
 def _read_len(cache_len: int, c_valid: int) -> int:
@@ -634,15 +644,17 @@ def decoder_step(
     cfg: WhisperConfig,
     model: Whisper,
     tokens: torch.Tensor,  # [S] int: one new token per row
-    pos,  # shared position of every row: a 0-d or [1] int64 tensor, or an int
+    pos,  # [S] int64 per-row positions, or a shared one: a 0-d or [1] tensor, or an int
     kv_cache: dict,  # [L, S, H, cache_len, hd], written in place at pos
     xa_kv: dict,  # [L, S, H, hd, 1500] KF (+ scales when quantized)
     c_valid: int = 0,  # read self-cache positions [0, c_valid) only; 0 = all
 ):
-    """One decode step for rows that advance in lockstep. ``pos`` is read on
-    the device (embedding row, self mask, cache write), so a CUDA graph of
-    the step replays at whatever position the tensor holds. Exact for any
-    ``c_valid`` > ``pos`` (later rows are masked), as the JAX package's
+    """One decode step, the rows in lockstep at a shared position or each at
+    its own (the continuous batcher's slots; the JAX package's ``pos``
+    vector without ``ring_row``). ``pos`` is read on the device (embedding
+    row, self mask, cache write), so a CUDA graph of the step replays at
+    whatever positions the tensor holds. Exact for any ``c_valid`` above
+    every row's position (later rows are masked), as the JAX package's
     ``decoder_step(c_valid=)``. Returns (logits [S, V] fp32, kv_cache)."""
     dec = model.decoder
     S = tokens.shape[0]
@@ -651,17 +663,18 @@ def decoder_step(
     hd = d // h
     scale = hd**-0.25
     pos1 = pos_index(pos, tokens.device)
+    at = (torch.arange(S, device=pos1.device), pos1) if pos1.numel() > 1 else pos1
 
     x = (embed_tokens(dec, tokens) + dec.pos_emb.index_select(0, pos1))[:, None, :].to(cfg.dtype)
     cv = _read_len(kv_cache["k"].shape[3], c_valid)
-    self_mask = (torch.arange(cv, device=x.device) <= pos1)[None, None, None, :]
+    self_mask = (torch.arange(cv, device=x.device) <= pos1[:, None])[:, None, None, :]
 
     for li, layer in enumerate(dec.blocks):
         y = layer_norm(x, layer.attn_ln)
         qp, kp, vp = _self_qkv(y, layer.attn)
         k_cache, v_cache = kv_cache["k"][li], kv_cache["v"][li]
-        _write_rows(k_cache, pos1, kp.reshape(S, h, hd))
-        _write_rows(v_cache, pos1, vp.reshape(S, h, hd))
+        _write_rows(k_cache, at, kp.reshape(S, h, hd))
+        _write_rows(v_cache, at, vp.reshape(S, h, hd))
         q = qp.reshape(S, h, 1, hd)
         sa = _attend(q * (scale * scale), k_cache[:, :, :cv], v_cache[:, :, :cv], self_mask)
         x = x + dense(sa.reshape(S, 1, d).to(x.dtype), layer.attn.o)

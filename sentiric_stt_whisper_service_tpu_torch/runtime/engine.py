@@ -28,14 +28,26 @@ What differs from the JAX package:
     card (construction raises without one), "cpu" the plain PyTorch
     versions. The audio, the encoder and the decode run there; the gates,
     DTW, prosody and clustering are numpy on the host, as there.
-  * **One request on the device at a time.** Up to ``parallel_requests``
+  * **Concurrent requests on the device.** Up to ``parallel_requests``
     requests are admitted through the semaphore, as in the JAX package, and
-    then decode one after another under the engine's lock: the decode
-    replays CUDA graphs from the engine's one ``DecodeGraphs``, whose static
-    buffers belong to one request at a time. The continuous batcher and the
-    beam gang that the JAX package routes concurrent requests through are
-    not ported yet (ROADMAP queue 1 item 10); outputs are the same, only
-    throughput differs.
+    run side by side. At ``parallel_requests`` > 1 a greedy t = 0 window
+    rides the continuous batcher (``runtime/batcher.py``, one pool per
+    audio_ctx bucket; a raw window is submitted as audio, so that the
+    batcher's tick encodes its admissions together and hands the cross K/V
+    back for the alignment pass and the ladder), and a beam t = 0 window
+    the beam gang (``runtime/gang.py``); a lone greedy request (the batcher
+    idle, no other request in flight) decodes on the engine's own graph
+    class, the counterpart of the JAX package's fused idle fast path.
+    Sampled rungs, the batched long-form path and ``parallel_requests`` = 1
+    decode on the engine's own classes. ``_device_lock`` guards what has one
+    owner: the engine's ``DecodeGraphs`` (whose static buffers serve one
+    request at a time) and its generator. Every thread holds the engine's
+    ``DeviceLock`` shared around its device work, and a graph capture holds
+    it exclusively (``models/graphs.py``); everything runs on the default
+    stream, so work from several threads is ordered on the card. Request
+    threads run their eager stages (encode, detect, alignment) one at a
+    time, and read the card through ``to_host``, which leaves the other
+    threads' launches free while it waits.
   * **Encode, then decode.** The JAX package fuses mel → encoder → cross
     K/V → greedy decode into one executable for a lone greedy request;
     here the window is encoded (K1, K2, the quantized cross K/V) and then
@@ -51,11 +63,16 @@ What differs from the JAX package:
     here: the encoder's attention runs K2 on the card (the engine says so in
     its log when it is built).
   * ``warmup()`` captures the decode graph classes of the configured ladder
-    (the JAX package compiles its shape classes there).
+    and, at ``parallel_requests`` > 1, builds the batcher's pools (their step
+    graphs) or the gang's batch buckets (the JAX package compiles its shape
+    classes there).
 
 ``PerformanceMetrics.stages_ms`` splits a request's time into language
 detection, encode, decode, alignment pass and prosody with clustering
-(device work synchronised at each stage's end).
+(device work synchronised at each stage's end; kept per request thread; a
+stage's time includes its wait for the other requests' eager stages). On
+the batcher's path a window's encode runs in the batcher's admission tick
+and counts in ``decode``.
 """
 
 from __future__ import annotations
@@ -89,6 +106,7 @@ from ..models import (
     init_params,
     precompute_xa_kv,
 )
+from ..models.graphs import DeviceLock, to_device, to_host
 from ..models.sampling import PROMPT_BUCKETS, prompt_bucket
 from ..models.timestamps import align_bucket, alignment_scores, compute_token_times, token_boundaries
 from ..ops import N_SAMPLES, SAMPLE_RATE, compute_log_mel
@@ -96,6 +114,8 @@ from ..ops.quant import fuse_decoder_qkv, is_quantized, quantize_params
 from ..prosody.extractor import AffectiveTags, ProsodyOptions, extract_prosody
 from ..text import clean_utf8, is_hallucination
 from ..tokenizer import LANGUAGES, WhisperTokenizer, fallback_tokenizer
+from .batcher import ContinuousBatcher
+from .gang import BeamGang, GangKey
 from .vad import is_speech_detected
 
 log = logging.getLogger(__name__)
@@ -211,7 +231,7 @@ def resolve_device(name: str) -> torch.device:
 
 def _host(res: DecodeResult) -> DecodeResult:
     """A DecodeResult's fields as numpy arrays on the host."""
-    return DecodeResult(*(x.cpu().numpy() for x in res))
+    return DecodeResult(*(to_host(x).numpy() for x in res))
 
 
 def _cut_after_first_poll():
@@ -225,8 +245,9 @@ class SttEngine:
     """Whisper inference engine over one ``Whisper`` module on one device.
 
     Concurrency: admission is a bounded semaphore of ``parallel_requests``
-    slots with a ``request_queue_timeout_ms`` wait; admitted requests run on
-    the device one at a time under ``_device_lock``."""
+    slots with a ``request_queue_timeout_ms`` wait; admitted requests share
+    the device through the continuous batcher and the beam gang (see the
+    module docstring)."""
 
     # Encoder-context classes for audio_ctx=-1 (auto): smallest bucket
     # covering the real audio; 384 ≈ 7.7 s, 768 ≈ 15.4 s, 1152 ≈ 23 s.
@@ -298,29 +319,77 @@ class SttEngine:
             )
         ).to(self.device)
         self._slots = threading.Semaphore(max(1, settings.parallel_requests))
+        # Shared around device work, exclusive for a graph capture.
+        self._device = DeviceLock()
+        # The engine's own graph classes and generator: one owner at a time.
         self._device_lock = threading.Lock()
+        # On the card, request threads dispatch their eager stages (encode,
+        # language detection, alignment: thousands of launches each) one at a
+        # time: from several threads at once they run about 3x slower than
+        # one after another (host contention; chip_threads.py). On the
+        # CPU they run side by side.
+        self._eager = (threading.Lock() if self.device.type == "cuda"
+                       else contextlib.nullcontext())
         self._ready = True
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(int(time.time()) & 0x7FFFFFFF)
         # The decode graph classes of this engine (models/graphs.py): one
         # StepLoop per shape class, captured at its first request.
-        self.graphs = DecodeGraphs()
-        self._stages: Optional[dict] = None  # the running request's stage ms
+        self.graphs = DecodeGraphs(lock=self._device)
+        self._request = threading.local()  # .stages: the request thread's stage ms
+        self._batchers: dict[int, ContinuousBatcher] = {}  # one pool per audio_ctx width
+        self._beam_gang: Optional[BeamGang] = None
+        self._batcher_lock = threading.Lock()
+        # Requests inside _transcribe_longform (the lone-request signal) and
+        # inside the beam path (the gang's hint).
+        self._inflight = 0
+        self._beam_inflight = 0
+        self._count_lock = threading.Lock()
 
     # ------------------------------------------------------------------
     @contextlib.contextmanager
     def _stage(self, name: str):
         """Adds the time of the block (the device synchronised at its end)
-        to the running request's ``stages_ms[name]``."""
+        to this thread's request's ``stages_ms[name]``."""
         t = time.perf_counter()
         try:
             yield
         finally:
-            if self._stages is not None:
+            stages = getattr(self._request, "stages", None)
+            if stages is not None:
                 if self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
+                    with self._device.shared():
+                        torch.cuda.synchronize(self.device)
                 ms = (time.perf_counter() - t) * 1e3
-                self._stages[name] = self._stages.get(name, 0.0) + ms
+                stages[name] = stages.get(name, 0.0) + ms
+
+    def _get_batcher(self, xa_ctx: Optional[int] = None) -> ContinuousBatcher:
+        """The continuous batcher for greedy windows of cross width
+        ``xa_ctx``: one pool per audio_ctx bucket, built (and its step
+        graphs captured) at first use."""
+        xa_ctx = xa_ctx or self.cfg.n_audio_ctx
+        with self._batcher_lock:
+            if xa_ctx not in self._batchers:
+                self._batchers[xa_ctx] = ContinuousBatcher(
+                    self.cfg, self.params, self.ids, self.suppress_mask,
+                    max_slots=max(2, self.settings.max_batch_size), cache_len=256,
+                    kv_bits=self.xa_bits, xa_ctx=xa_ctx, self_dtype=self.self_dtype,
+                    device_lock=self._device)
+            return self._batchers[xa_ctx]
+
+    def _get_beam_gang(self) -> Optional[BeamGang]:
+        """The beam gang, when the engine serves concurrent requests and
+        gang_window_ms > 0; else None."""
+        if self.settings.parallel_requests <= 1 or self.settings.gang_window_ms <= 0:
+            return None
+        with self._batcher_lock:
+            if self._beam_gang is None:
+                self._beam_gang = BeamGang(
+                    self.cfg, self.params, self.ids, self.suppress_mask,
+                    window_ms=self.settings.gang_window_ms,
+                    max_gang=max(2, self.settings.max_batch_size), self_dtype=self.self_dtype,
+                    others_hint=lambda: self._beam_inflight, device_lock=self._device)
+            return self._beam_gang
 
     def warmup(self) -> float:
         """Capture the decode graph classes a request's first window meets
@@ -328,46 +397,80 @@ class SttEngine:
         first rung (greedy or beam at full context, and greedy at every
         audio_ctx bucket under audio_ctx=-1) and, when the ladder can climb,
         its sampled rung (best-of or greedy sampling). Each decode is cut at
-        its first chunk once its graphs are captured. Language detection,
-        the alignment pass and prosody run once. Returns the seconds
-        spent."""
+        its first chunk once its graphs are captured. At
+        ``parallel_requests`` > 1 it also builds the batcher's pool of every
+        audio_ctx width a greedy first rung can meet (its step graphs), or
+        captures the beam gang's class at every batch bucket. Language
+        detection, the alignment pass and prosody run once. Returns the
+        seconds spent."""
         t0 = time.perf_counter()
         s = self.settings
-        with self._device_lock:
-            sot = list(self.tokenizer.sot_sequence("en" if self.cfg.is_multilingual else None))
-            t = np.arange(SAMPLE_RATE, dtype=np.float32) / SAMPLE_RATE
-            clip = np.zeros(N_SAMPLES, np.float32)
-            clip[:SAMPLE_RATE] = 0.1 * np.sin(2 * np.pi * 150 * t)
-            xa = self._encode_window(clip[None])
-            if self.cfg.is_multilingual:
-                sp = self.tokenizer.special
+        sot = list(self.tokenizer.sot_sequence("en" if self.cfg.is_multilingual else None))
+        t = np.arange(SAMPLE_RATE, dtype=np.float32) / SAMPLE_RATE
+        clip = np.zeros(N_SAMPLES, np.float32)
+        clip[:SAMPLE_RATE] = 0.1 * np.sin(2 * np.pi * 150 * t)
+        xa = self._encode_window(clip[None])
+        if self.cfg.is_multilingual:
+            sp = self.tokenizer.special
+            with self._eager, self._device.shared():
                 detect_language(self.cfg, self.params, xa, sp.sot, sp.language_begin,
                                 sp.num_languages)
-            rungs = [(s.temperature, s.beam_size, s.best_of)]
-            if s.temperature + 0.2 <= 1.0 + 1e-6:
-                rungs.append((max(s.temperature, 0.0) + 0.2, s.beam_size, s.best_of))
-            for temp, beam, best_of in rungs:
-                self._decode_one(xa, sot, len(sot), 0, temp, beam, best_of,
-                                 should_abort=_cut_after_first_poll())
-            if s.audio_ctx == -1 and s.temperature <= 0.0 and s.beam_size <= 1:
-                for b in self.AUDIO_CTX_BUCKETS:
-                    if b < self.cfg.n_audio_ctx:
-                        xa_b = self._encode_window(clip[None], b)
-                        self._decode_one(xa_b, sot, len(sot), 0, 0.0, 1, 1,
-                                         should_abort=_cut_after_first_poll())
-            if not s.no_timestamps:
-                seq = np.asarray(sot + [100 + i for i in range(8)], np.int64)
+        rungs = [(s.temperature, s.beam_size, s.best_of)]
+        if s.temperature + 0.2 <= 1.0 + 1e-6:
+            rungs.append((max(s.temperature, 0.0) + 0.2, s.beam_size, s.best_of))
+        greedy = s.temperature <= 0.0 and s.beam_size <= 1
+        for temp, beam, best_of in rungs:
+            # A greedy first rung as a lone raw window: the engine's own class.
+            raw = greedy and temp <= 0.0
+            self._decode_one(None if raw else xa, sot, len(sot), 0, temp, beam, best_of,
+                             should_abort=_cut_after_first_poll(),
+                             window_audio=clip if raw else None)
+        if s.audio_ctx == -1 and greedy:
+            for b in self.AUDIO_CTX_BUCKETS:
+                if b < self.cfg.n_audio_ctx:
+                    self._decode_one(None, sot, len(sot), 0, 0.0, 1, 1,
+                                     should_abort=_cut_after_first_poll(), window_audio=clip,
+                                     n_ctx=b)
+        if s.parallel_requests > 1 and greedy:
+            full = self.cfg.n_audio_ctx
+            if s.audio_ctx == -1:
+                widths = [b for b in self.AUDIO_CTX_BUCKETS if b < full] + [full]
+            else:
+                widths = [self._window_ctx(0) or full]
+            for w in widths:
+                self._get_batcher(w)
+        gang = self._get_beam_gang()
+        if gang is not None and s.temperature <= 0.0 and s.beam_size > 1:
+            prefill = prompt_bucket(len(sot))
+            row = np.full(self.cfg.n_text_ctx, self.ids.eot, np.int64)
+            row[: len(sot)] = sot
+            gang.warmup(xa, row, GangKey(
+                sample_begin=len(sot), sot_index=0, beam_size=s.beam_size,
+                max_len=min(self.cfg.n_text_ctx, prefill + SAMPLE_LEN), prefill_len=prefill,
+                xa_f=self.cfg.n_audio_ctx, use_timestamps=True))
+        if not s.no_timestamps:
+            seq = np.asarray(sot + [100 + i for i in range(8)], np.int64)
+            with self._eager, self._device.shared():
                 compute_token_times(self.cfg, self.params, xa, seq, len(sot), 50)
-            extract_prosody(clip[:SAMPLE_RATE], SAMPLE_RATE)  # its first call imports scipy
-            if self.device.type == "cuda":
+        extract_prosody(clip[:SAMPLE_RATE], SAMPLE_RATE)  # its first call imports scipy
+        if self.device.type == "cuda":
+            with self._device.shared():
                 torch.cuda.synchronize(self.device)
         return time.perf_counter() - t0
 
     def shutdown(self):
-        """Release the decode graph classes (their static buffers and pool);
-        a later request captures its class anew."""
+        """Stop the batcher's and the gang's workers (rejecting what they
+        still hold) and release the decode graph classes; a later request
+        builds and captures anew."""
+        with self._batcher_lock:
+            for b in self._batchers.values():
+                b.shutdown()
+            self._batchers.clear()
+            if self._beam_gang is not None:
+                self._beam_gang.shutdown()
+                self._beam_gang = None
         with self._device_lock:
-            self.graphs = DecodeGraphs()
+            self.graphs = DecodeGraphs(lock=self._device)
 
     def is_ready(self) -> bool:
         return self._ready
@@ -408,8 +511,8 @@ class SttEngine:
                 pad = [(0, 0)] * (windows.ndim - 1) + [(0, target - windows.shape[-1])]
                 windows = np.pad(windows, pad)
         cfg = self.cfg
-        with self._stage("encode"), torch.inference_mode():
-            audio = torch.from_numpy(np.ascontiguousarray(windows)).to(self.device)
+        with self._stage("encode"), self._eager, self._device.shared(), torch.inference_mode():
+            audio = to_device(np.ascontiguousarray(windows), self.device)
             mel = compute_log_mel(audio, n_mels=cfg.n_mels, dtype=cfg.dtype)
             return precompute_xa_kv(cfg, self.params, encoder_apply(cfg, self.params, mel),
                                     self.xa_bits)
@@ -441,9 +544,9 @@ class SttEngine:
 
         audio = np.asarray(pcmf32, np.float32).reshape(-1)
         if input_sample_rate != SAMPLE_RATE:
-            with self._device_lock:  # no device work beside another request's
-                audio = resample(audio, input_sample_rate, SAMPLE_RATE,
-                                 device=self.device).cpu().numpy()
+            with self._device.shared():
+                audio = to_host(resample(to_device(audio, self.device), input_sample_rate,
+                                         SAMPLE_RATE)).numpy()
 
         # Min-duration gate.
         min_samples = int(s.vad_ms_min_duration * SAMPLE_RATE / 1000)
@@ -468,15 +571,21 @@ class SttEngine:
         t_q = time.perf_counter()
         if not self._slots.acquire(timeout=s.request_queue_timeout_ms / 1000.0):
             raise EngineBusyException("Engine busy: no free decode slot within timeout")
+        metrics.queue_time_ms = (time.perf_counter() - t_q) * 1e3
         try:
-            self._decode_options(options)  # a refused beam size raises here
-            with self._device_lock:
-                metrics.queue_time_ms = (time.perf_counter() - t_q) * 1e3
-                self._stages = metrics.stages_ms
-                try:
-                    results = self._transcribe_longform(audio, options, metrics)
-                finally:
-                    self._stages = None
+            temperature0, beam_size, _ = self._decode_options(options)  # a refused beam raises
+            beam_flight = beam_size > 1 and temperature0 <= 0.0
+            with self._count_lock:
+                self._inflight += 1
+                self._beam_inflight += beam_flight
+            self._request.stages = metrics.stages_ms
+            try:
+                results = self._transcribe_longform(audio, options, metrics)
+            finally:
+                self._request.stages = None
+                with self._count_lock:
+                    self._inflight -= 1
+                    self._beam_inflight -= beam_flight
         finally:
             self._slots.release()
         metrics.processing_time_ms = (time.perf_counter() - t_start) * 1e3
@@ -511,15 +620,16 @@ class SttEngine:
         n_ctx = self._window_ctx(n, options.audio_ctx)
         xa_kv = self._encode_window(window[None], n_ctx)
         sp = self.tokenizer.special
-        with self._stage("detect"):
+        with self._stage("detect"), self._eager, self._device.shared():
             probs = detect_language(self.cfg, self.params, xa_kv, sp.sot, sp.language_begin,
-                                    sp.num_languages)[0].cpu().numpy()
+                                    sp.num_languages)[0]
+            probs = to_host(probs).numpy()
         best = int(np.argmax(probs))
         return LANGUAGES[best], float(probs[best]), xa_kv, n_ctx
 
     def _decode_one(
         self,
-        xa_kv: dict,
+        xa_kv: Optional[dict],
         init_tokens: list[int],
         sample_begin: int,
         sot_index: int,
@@ -528,30 +638,70 @@ class SttEngine:
         best_of: int,
         should_abort=None,
         sample_len: int = SAMPLE_LEN,
+        window_audio: Optional[np.ndarray] = None,
+        n_ctx: Optional[int] = None,
+        xa_out: Optional[list] = None,
     ) -> Optional[DecodeResult]:
         """One decode attempt at one temperature for a single window: beam
         search at t = 0 with beam_size > 1, best-of sampling above t = 0
-        with best_of > 1, else greedy (or sampled) decoding; the step
-        replays the CUDA graph of its class from ``self.graphs``. Returns
-        the DecodeResult on the host, or None if aborted."""
+        with best_of > 1, else greedy (or sampled) decoding. Returns the
+        DecodeResult on the host, or None if aborted.
+
+        Routing, as the JAX package's: at ``parallel_requests`` > 1 a greedy
+        t = 0 window goes to the continuous batcher of its width unless it
+        is a raw window decoding alone (``fused_idle_fastpath``, no other
+        request in flight, the pool idle: the JAX package's fused path, here
+        the engine's own class, which polls ``should_abort`` as well), and a
+        beam t = 0 window to the beam gang; everything else replays the
+        engine's own graph class from ``self.graphs``. ``window_audio`` (with ``xa_kv`` None) is the raw
+        window, encoded here or, on the batcher's path, in the batcher's
+        admission tick; its cross K/V is appended to ``xa_out``."""
         cfg = self.cfg
         ctx = cfg.n_text_ctx
-        tinit = torch.full((1, ctx), self.ids.eot, dtype=torch.int64)
-        tinit[0, : len(init_tokens)] = torch.tensor(init_tokens, dtype=torch.int64)
-        tinit = tinit.to(self.device)
+        s = self.settings
+        greedy = temperature <= 0.0 and beam_size <= 1
+        if xa_kv is not None:
+            xa_f = xa_kv["k_scale" if "k_scale" in xa_kv else "k"].shape[-1]
+        else:
+            xa_f = n_ctx or cfg.n_audio_ctx
+        if greedy and s.parallel_requests > 1:
+            pool = self._batchers.get(xa_f)
+            alone = (xa_kv is None and s.fused_idle_fastpath and self._inflight <= 1
+                     and (pool is None or pool.is_idle()))
+            if not alone:
+                return self._decode_batched(xa_kv, init_tokens, sot_index, should_abort,
+                                            sample_len, window_audio, xa_f, xa_out)
+        if xa_kv is None:
+            xa_kv = self._encode_window(window_audio[None], n_ctx)
+            if xa_out is not None:
+                xa_out.append(xa_kv)
+        tinit = np.full((1, ctx), self.ids.eot, np.int64)
+        tinit[0, : len(init_tokens)] = init_tokens
         prefill_len = prompt_bucket(sample_begin)
         # Greedy decodes pin the prefill to one bucket per cap class (the
         # JAX package's TICK_PREFILL pinning; output-identical).
-        pin_prefill = temperature <= 0.0 and beam_size <= 1
-        if pin_prefill:
+        if greedy:
             pinned = TICK_PREFILL if sample_len < SAMPLE_LEN else PROMPT_BUCKETS[-1]
             prefill_len = max(prefill_len, pinned)
         max_len = min(ctx, prefill_len + sample_len)
+        if temperature <= 0.0 and beam_size > 1:
+            gang = self._get_beam_gang()
+            if gang is not None:
+                fut = gang.submit(xa_kv, tinit[0], GangKey(
+                    sample_begin=sample_begin, sot_index=sot_index, beam_size=beam_size,
+                    max_len=max_len, prefill_len=prefill_len, xa_f=xa_f, use_timestamps=True),
+                    should_abort=should_abort)
+                with self._stage("decode"):
+                    res = fut.result(timeout=self._wait_s())
+                if res is None:
+                    return None
+                with self._device.shared():
+                    return _host(res)
         common = dict(max_len=max_len, prefill_len=prefill_len, self_dtype=self.self_dtype,
                       should_abort=should_abort, graphs=self.graphs)
-        args = (cfg, self.params, xa_kv, tinit, sample_begin, sot_index, self.ids,
-                self.suppress_mask)
-        with self._stage("decode"):
+        with self._stage("decode"), self._device_lock, self._device.shared():
+            args = (cfg, self.params, xa_kv, to_device(tinit, self.device),
+                    sample_begin, sot_index, self.ids, self.suppress_mask)
             if temperature <= 0.0 and beam_size > 1:
                 res = decode_window_beam(*args, beam_size=beam_size, **common)
             elif temperature > 0.0 and best_of > 1:
@@ -562,8 +712,48 @@ class SttEngine:
                 res = decode_window(
                     *args, temperature, self._generator if temperature > 0.0 else None,
                     cvalid_rows=self.settings.cvalid_rows,
-                    sample_cap=sample_len if pin_prefill else None, **common)
+                    sample_cap=sample_len if greedy else None, **common)
             return None if res is None else _host(res)
+
+    def _wait_s(self) -> float:
+        """How long a request waits on the batcher or the gang (the JAX
+        package's bound)."""
+        return max(60.0, self.settings.request_queue_timeout_ms / 1000.0 * 120)
+
+    def _decode_batched(self, xa_kv, init_tokens, sot_index, should_abort, sample_len,
+                        window_audio, xa_f, xa_out) -> Optional[DecodeResult]:
+        """A greedy t = 0 window through the continuous batcher: the raw
+        window when it is not encoded yet, else its cross K/V. The result
+        comes back on the host as a DecodeResult."""
+        ctx = self.cfg.n_text_ctx
+        batcher = self._get_batcher(xa_f)
+        if xa_kv is None:
+            fut = batcher.submit(window_audio, init_tokens, sot_index, max_tokens=sample_len,
+                                 should_abort=should_abort)
+        else:
+            fut = batcher.submit_encoded(xa_kv, init_tokens, sot_index, max_tokens=sample_len,
+                                         should_abort=should_abort)
+        with self._stage("decode"):
+            out = fut.result(timeout=self._wait_s())
+        if out is None:  # aborted mid-decode
+            return None
+        if xa_kv is None and xa_out is not None:
+            xa_out.append(out["xa_kv"])
+        seq = out["tokens"]
+        n = len(init_tokens) + len(seq)
+        tokens = np.full((1, ctx), self.ids.eot, np.int64)
+        tokens[0, : len(init_tokens)] = init_tokens
+        tokens[0, len(init_tokens) : n] = seq
+        tok_lps = np.zeros((1, ctx), np.float32)
+        tok_lps[0, len(init_tokens) : n] = out["token_logprobs"]
+        return DecodeResult(
+            tokens=tokens,
+            lengths=np.asarray([min(n + 1, ctx)], np.int64),
+            sum_logprobs=np.asarray([out["sum_logprob"]], np.float32),
+            avg_logprobs=np.asarray([out["avg_logprob"]], np.float32),
+            no_speech_probs=np.asarray([out["no_speech_prob"]], np.float32),
+            token_logprobs=tok_lps,
+        )
 
     def _transcribe_longform(
         self,
@@ -615,6 +805,10 @@ class SttEngine:
             n_ctx_w = self._window_ctx(remain, options.audio_ctx)
             if seek == 0 and xa_kv_w0 is not None and xa_ctx_w0 == n_ctx_w:
                 xa_kv = xa_kv_w0  # the detect pass encoded this very window
+            elif temperature0 <= 0.0 and beam_size <= 1:
+                # Greedy: the encode waits for _decode_one, where the
+                # batcher's admission tick may encode it with others'.
+                xa_kv = None
             else:
                 xa_kv = self._encode_window(window[None], n_ctx_w)
 
@@ -639,10 +833,15 @@ class SttEngine:
             used_temp = temps[0]
             for t in temps:
                 used_temp = t
+                xa_holder: list = []
                 res = self._decode_one(
                     xa_kv, init_tokens, sample_begin, sot_index, t, beam_size, best_of,
                     should_abort=options.should_abort, sample_len=sample_len,
+                    window_audio=window if xa_kv is None else None, n_ctx=n_ctx_w,
+                    xa_out=xa_holder,
                 )
+                if xa_kv is None and xa_holder:
+                    xa_kv = xa_holder[0]  # encoded by _decode_one or the batcher
                 if res is None:  # aborted mid-decode
                     return results
                 seq = np.asarray(res.tokens[0])[sample_begin : int(res.lengths[0])]
@@ -681,7 +880,7 @@ class SttEngine:
             if segments and not no_ts:
                 try:
                     align_seq = [t for t in map(int, seq) if t != ids.eot]
-                    with self._stage("align"):
+                    with self._stage("align"), self._eager, self._device.shared():
                         token_times = compute_token_times(
                             cfg, self.params, xa_kv,
                             np.asarray(init_tokens + align_seq, np.int64),
@@ -762,9 +961,10 @@ class SttEngine:
                 durs_cs.append(int(round(remain / SAMPLE_RATE * 100)))
 
             xa_kv = self._encode_window(windows)
-            tinit = torch.full((W, cfg.n_text_ctx), ids.eot, dtype=torch.int64)
-            tinit[:, :sample_begin] = torch.tensor(init_tokens, dtype=torch.int64)
-            tinit = tinit.to(self.device)
+            tinit = np.full((W, cfg.n_text_ctx), ids.eot, np.int64)
+            tinit[:, :sample_begin] = init_tokens
+            with self._device.shared():
+                tinit = to_device(tinit, self.device)
             args = (cfg, self.params, xa_kv, tinit, sample_begin, 0, ids, self.suppress_mask)
             common = dict(max_len=max_len, prefill_len=prefill_len, self_dtype=self.self_dtype,
                           should_abort=options.should_abort, graphs=self.graphs)
@@ -777,7 +977,7 @@ class SttEngine:
             for t in temps:
                 if len(accepted) + len(silent) == W:
                     break
-                with self._stage("decode"):
+                with self._stage("decode"), self._device_lock, self._device.shared():
                     if t <= 0.0 and beam_size > 1:
                         res = decode_window_beam(*args, beam_size=beam_size, **common)
                     else:
@@ -818,7 +1018,7 @@ class SttEngine:
             token_times: dict[int, np.ndarray] = {}
             if accepted and not no_ts:
                 try:
-                    with self._stage("align"):
+                    with self._stage("align"), self._eager, self._device.shared():
                         token_times = self._align_batch(
                             xa_kv, accepted, init_tokens, sample_begin, durs_cs)
                 except Exception:  # noqa: BLE001 — timestamps are best-effort, as there
@@ -856,10 +1056,10 @@ class SttEngine:
         for r, j in enumerate(keys):
             align[r, :sample_begin] = init_tokens
             align[r, sample_begin : sample_begin + len(seqs[j])] = seqs[j]
-        rows = torch.tensor(keys, device=self.device)
+        rows = to_device(np.asarray(keys, np.int64), self.device)
         sel = {k: v.index_select(1, rows) for k, v in xa_kv.items()}
-        scores = alignment_scores(cfg, self.params, sel,
-                                  torch.from_numpy(align).to(self.device)).cpu().numpy()
+        scores = to_host(alignment_scores(cfg, self.params, sel,
+                                          to_device(align, self.device))).numpy()
         out = {}
         for r, j in enumerate(keys):
             n_frames = max(1, int(durs_cs[j] / 2))

@@ -13,7 +13,9 @@ kernels take), bf16, int8 weights, random from a seed, over random encoder
 output; B = 2. A graphed window runs the same kernels in the same order as
 the eager one, so every field of the two ``DecodeResult``s must be equal,
 bit for bit; so must a second request through the same captured class, an
-aborted one, and a sampled one from the same generator state.
+aborted one, and a sampled one from the same generator state. The
+continuous batcher's graphed step equals its eager step on the same
+admissions (ticks driven by the test), every result bit for bit.
 """
 
 import pytest
@@ -31,6 +33,7 @@ from sentiric_stt_whisper_service_tpu_torch.models import (
     precompute_xa_kv,
 )
 from sentiric_stt_whisper_service_tpu_torch.ops.quant import fuse_decoder_qkv, quantize_params
+from sentiric_stt_whisper_service_tpu_torch.runtime.batcher import ContinuousBatcher
 from sentiric_stt_whisper_service_tpu_torch.tokenizer import fallback_tokenizer
 
 pytestmark = pytest.mark.cuda
@@ -153,3 +156,47 @@ def test_abort_mid_window_under_graphs(setup):
                   _greedy(setup, 4, graph=False))
     _assert_equal(_beam(setup, 5, graphs=graphs, should_abort=lambda: False, abort_chunk=4),
                   _beam(setup, 5, graph=False))
+
+
+def _batcher_run(setup, bits, graph):
+    """Four requests through a 4-slot pool, ticks driven here: two windows
+    admitted together, a raw 30 s window after two ticks, then a carried
+    prompt into the first freed slot. Returns the results and the launches."""
+    cfg, model, slabs, ids, sup, tinit, sb = setup
+    sot = tinit[0, :sb].tolist()
+    pool = ContinuousBatcher(cfg, model, ids, sup, max_slots=4, kv_bits=bits,
+                             self_dtype=F8 if bits else None, graph=graph)
+    pool._stop.set()  # park the worker: the test runs the ticks
+    pool._wake.set()
+    pool._thread.join(timeout=10)
+    item = [{k: v[:, i : i + 1] for k, v in slabs[bits].items()} for i in range(B)]
+    audio = torch.Generator().manual_seed(1)
+    window = (0.05 * torch.randn(480000, generator=audio)).numpy()
+    kernels.reset_launch_counts()
+    futs = [pool.submit_encoded(item[i], sot, 0, max_tokens=BUDGET) for i in range(B)]
+    pool._worker_tick()
+    pool._worker_tick()
+    futs.append(pool.submit(window, sot, 0, max_tokens=BUDGET))
+    futs.append(pool.submit_encoded(item[1], [ids.sot_prev, 500, 501] + sot, 3,
+                                    max_tokens=BUDGET + 8))
+    for _ in range(500):
+        pool._worker_tick()
+        if all(f.done() for f in futs):
+            break
+    launches = dict(kernels.LAUNCHES)
+    pool.shutdown()
+    return [f.result(timeout=1) for f in futs], launches
+
+
+@pytest.mark.parametrize("bits,cross_read", [(4, "decode_attention_i4"), (8, "decode_attention")])
+def test_batcher_graph_equals_eager(setup, bits, cross_read):
+    cfg = setup[0]
+    eager, _ = _batcher_run(setup, bits, graph=False)
+    graphed, launches = _batcher_run(setup, bits, graph=True)
+    assert launches[cross_read] > 0 and launches[cross_read] % cfg.n_text_layer == 0
+    assert launches["log_mel"] == 1 and launches["flash_attention"] == cfg.n_audio_layer
+    for got, want in zip(graphed, eager):
+        for key in ("tokens", "token_logprobs"):
+            assert (got[key] == want[key]).all(), key
+        for key in ("sum_logprob", "avg_logprob", "no_speech_prob"):
+            assert got[key] == want[key], key

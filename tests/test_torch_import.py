@@ -36,7 +36,9 @@ MODULES = [
     "sentiric_stt_whisper_service_tpu_torch.models.timestamps",
     "sentiric_stt_whisper_service_tpu_torch.prosody.extractor",
     "sentiric_stt_whisper_service_tpu_torch.runtime",
+    "sentiric_stt_whisper_service_tpu_torch.runtime.batcher",
     "sentiric_stt_whisper_service_tpu_torch.runtime.engine",
+    "sentiric_stt_whisper_service_tpu_torch.runtime.gang",
     "sentiric_stt_whisper_service_tpu_torch.runtime.vad",
     "sentiric_stt_whisper_service_tpu_torch.text",
 ]
