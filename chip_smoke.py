@@ -10,6 +10,8 @@ It uses only ``sentiric_stt_whisper_service_tpu_torch`` (never JAX or the
 JAX package) and fails with a non-zero exit on the first phase that fails:
 
 1. the card: ``nvidia-smi`` name and power limit; no CUDA device is a failure;
+   which of the four packages the servers import (``grpc``, ``aiohttp``,
+   ``google.protobuf``, ``prometheus_client``) load here (printed only);
 2. the build: every kernel of ``csrc/`` compiled from this checkout, one
    ``nvcc`` per source, all started together;
 3. kernel checks at the slices' shapes (4 windows of large-v3, 5 beams):
@@ -87,7 +89,8 @@ JAX package) and fails with a non-zero exit on the first phase that fails:
    eight threads (phase 6's 5, 12, 21 and 30 s, 10 s at 8 kHz and 50 s
    sequential clips, and two more 30 s clips). Greedy (path
    ``concurrent_greedy``: K1, K2, K4) rides the continuous batcher's int4
-   pool (``runtime/batcher.py``, warmed up): each request's wall beside its
+   pool (``runtime/batcher.py``, warmed up; an int8 container, as the JAX
+   package's: raw windows are encoded at 8 bits): each request's wall beside its
    phase 6 wall, the set's wall and audio-s/s beside phase 6's set, the
    graphed step ms by number of live slots, slots live per step, the pool's
    bytes, then the device's idle share over a 32-token set under
@@ -95,7 +98,7 @@ JAX package) and fails with a non-zero exit on the first phase that fails:
    admissions (eight windows, 32 tokens) check that the graphed pool equals
    an eager one (``graph=False``) bit for bit and that each request's
    first-step logits lie within 0.25 x the logits' std of a solo B = 1
-   prefill (printing the common token prefix with a solo ``decode_window``),
+   prefill over the same int8 slab (printing the common token prefix with a solo ``decode_window``),
    and that an aborted request resolves None and frees its slot for a
    queued ninth while the others finish. An int8 engine, not warmed up (its
    pool is built and captured under load), runs the set at 16 tokens (path
@@ -105,11 +108,38 @@ JAX package) and fails with a non-zero exit on the first phase that fails:
    gang class's static buffers. Every future must resolve and every request
    keep segments. Apart from each path's counts, the launches of the
    pools' and the gang's own step graphs (paths ``concurrent_greedy_pool``,
-   ``concurrent_greedy_int8_pool``, ``concurrent_beam_gang``) must show K4
-   (not K3) in the int4 pool, K3 (not K4) in the int8 pool, K5 and K6 in
-   the gang: the request threads' language detection launches K3 / K4 at
-   B = 1 besides. (``chip_threads.py`` measures the two choices behind the
-   concurrent paths' reads and eager stages.)
+   ``concurrent_greedy_int8_pool``, ``concurrent_beam_gang``) must show K3
+   (not K4) in both pools, K5 and K6 in the gang: the request threads'
+   language detection launches K4 at B = 1 besides. (``chip_threads.py``
+   measures the two choices behind the concurrent paths' reads and eager
+   stages.)
+8. streams: ``runtime/streaming.StreamingSession`` over phase 6's model
+   (stock settings: beam 5 finals, greedy partials, 500 ms ticks, language
+   auto, VAD on; the gates relaxed), fed port-written WAVs in wire chunks
+   (the first carries the 44-byte header and one byte more) as fast as the
+   session takes them. ``stream_parity``: a 6 s clip in 200 ms chunks on a
+   ``warmup()``ed engine at ``parallel_requests=1``; each tick's wall and
+   cap, their p50 and p90, the first partial's latency after the chunk
+   that crossed 500 ms, and EOS → last final; it checks that partials end
+   in " " and are never final, that finals come only on EOS and leave the
+   buffer empty, that times are in order, that the finals (and each
+   window's token ids) equal ``transcribe_pcm16`` of the same buffer with
+   the session's final options, that no ``DecodeGraphs`` class was
+   captured in the ticks or the finalize, and that the ticks launched K1,
+   K2, K4 and the finals K5, K6. ``stream_incremental``: the same clip in
+   incremental mode (commits, trimmed samples, tick walls; finals' offsets
+   in order, the buffer exactly the uncommitted tail). ``stream_cap``: a
+   32 s clip in 4 s chunks; the tick past the 30 s cap must flush finals
+   through a beam-5 re-decode (K5, K6). ``concurrent_streams``: four 6 s
+   streams from four threads through an engine at ``parallel_requests=4``,
+   ``max_batch_size=4``, ``language="en"``: tick p50 and p90 beside one
+   stream's, every stream's EOS finals, and the pool's own step graphs on
+   K3, not K4 (path ``concurrent_streams_pool``). ``silero``: a random-init
+   Silero written with ``write_silero_ggml`` and installed by
+   ``load_silero``; its probabilities for a 30 s clip on the card within
+   1e-4 of the CPU's cell loop (TF32 off), its time per 30 s, the gate's
+   decision on a voiced and a silent clip, and one ``transcribe_pcm16``
+   through the gate.
 
 ``--kernels-of DIR`` runs phases 1–3 only, with the package of the checkout
 in ``DIR``, and ends with the checks as one JSON list; ``--compare DIR`` runs
@@ -119,14 +149,14 @@ commit on one card.
 
 Each path (greedy int4, greedy int8, greedy bf16, beam 5, engine greedy,
 engine beam, concurrent greedy, concurrent greedy int8, concurrent beam,
-and the concurrent pools' and gang's own) has its own launch counts, set to 0 just before its (first) run and read just after it; each
+the concurrent pools' and gang's own, and phase 8's streams) has its own launch counts, set to 0 just before its (first) run and read just after it; each
 run must launch every kernel of its path. A graph replay adds the launches
 its capture counted. ``--profile`` runs phase 3, then replaces phases 4–5
 with a breakdown of both slices (the greedy one with the int4 and the int8
 slab): stage times, and kernel time, launches and the device's idle share
 per decode step under ``torch.profiler``, eager and graphed, and the graphed
 greedy slice's wall at four intervals between reads of the device. The last lines
-are the card, one JSON object with each kernel's route, source, launch count
+are the smoke's wall, the card, one JSON object with each kernel's route, source, launch count
 on the path its row times (and on every path), error, times and bound, then
 ``{"ok": true, "device": {...}}``.
 """
@@ -191,6 +221,21 @@ SOURCES = {
 PROFILE_KERNELS = ("log_mel_kernel", "flash_attention_kernel", "decode_attention_kernel",
                    "decode_attention_i4_kernel", "beam_attention_kernel",
                    "beam_cross_attention_kernel")
+
+
+# The packages the JAX package's servers import (serving/): a serving phase
+# can run only where they load.
+SERVING_PACKAGES = ("grpc", "aiohttp", "google.protobuf", "prometheus_client")
+
+
+def serving_import(name: str) -> str:
+    """``name``'s version (or "ok") if it imports here, else why not."""
+    import importlib
+
+    try:
+        return getattr(importlib.import_module(name), "__version__", "ok")
+    except Exception as e:  # noqa: BLE001 — printed, never a failure
+        return f"not importable ({type(e).__name__})"
 
 
 class SmokeFailure(Exception):
@@ -710,6 +755,7 @@ def run(torch, np, profile: bool = False, kernels_only: bool = False) -> int:
     from sentiric_stt_whisper_service_tpu_torch.ops.quant import fuse_decoder_qkv, quantize_params
     from sentiric_stt_whisper_service_tpu_torch.tokenizer import fallback_tokenizer
 
+    t_start = time.perf_counter()
     require("jax" not in sys.modules, "the port imported jax")
 
     # Full-fp32 products in the plain versions (cuDNN's default is TF32).
@@ -719,6 +765,8 @@ def run(torch, np, profile: bool = False, kernels_only: bool = False) -> int:
     card = card_line()
     print(f"== 1. card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} device(s), device 0 = {torch.cuda.get_device_name(0)}")
+    print("  the servers' packages here: " + ", ".join(
+        f"{name} {serving_import(name)}" for name in SERVING_PACKAGES))
 
     print("== 2. build")
     path, seconds, log = kernels.build(verbose=True)
@@ -969,6 +1017,10 @@ def run(torch, np, profile: bool = False, kernels_only: bool = False) -> int:
           f"max_batch_size {CONCURRENT}: the continuous batcher and the beam gang [{card}]")
     concurrency_phase(torch, np, model, paths, card, requests, sequential)
 
+    print(f"== 8. streams: large-v3, int4 compute, StreamingSession over WAV chunks; the Silero "
+          f"VAD [{card}]")
+    streaming_phase(torch, np, model, paths, card)
+
     kernels_json = []
     for name, (src, replaces, path) in SOURCES.items():
         mine = [c for c in checks if c["kernel"] == name]
@@ -983,6 +1035,7 @@ def run(torch, np, profile: bool = False, kernels_only: bool = False) -> int:
             "device_ms": row["device_ms"], "library_device_ms": row["library_device_ms"],
             "cold_device_ms": row["cold_device_ms"],
         })
+    print(f"  smoke wall {time.perf_counter() - t_start:.1f} s, the build included [{card}]")
     print(card)
     print(json.dumps({"kernels": kernels_json}))
     print(json.dumps({"ok": True, "device": {
@@ -1204,7 +1257,6 @@ PROFILE_TOKENS = 32  # phase 7: the profiled greedy set (idle share)
 
 def concurrency_phase(torch, np, model, paths, card, requests, sequential) -> None:
     """Phase 7: concurrent requests on the card (see the module docstring)."""
-    import collections
     import dataclasses
     import threading
 
@@ -1313,42 +1365,27 @@ def concurrency_phase(torch, np, model, paths, card, requests, sequential) -> No
         return stats
 
     def need(path, names):
-        for name in names:
-            require(paths[path][name] > 0, f"{path}: kernel {name} was not launched")
+        need_launched(paths, path, names)
 
     # The pools' and the gang's own launches, apart from the request threads'
-    # (whose language detection launches K3 / K4 at B = 1): the counts that
-    # each step graph's replays add, per loop.
-    own = collections.defaultdict(collections.Counter)  # id(StepLoop) -> launches
-    advance = StepLoop.advance
-
-    def counted(loop, bound):
-        advance(loop, bound)
-        if loop.graphs is not None:
-            own[id(loop)].update(loop.graphs[bound][1])
-
-    StepLoop.advance = counted
+    # (whose language detection launches K4 at B = 1).
+    own = OwnLaunches(StepLoop)
 
     def owned(path, loops, names, absent=()):
-        """The launches of ``loops`` since the last reset as path ``path``;
-        each of ``names`` launched, none of ``absent``."""
-        paths[path] = {k: sum(own[id(lp)][k] for lp in loops) for k in kernels.LAUNCHES}
-        need(path, names)
-        for name in absent:
-            require(paths[path][name] == 0, f"{path}: kernel {name} was launched")
-        print(f"  [{path}] launches of its own step graphs: {paths[path]}")
+        own.record(paths, path, loops, names, absent)
 
     def reset_counts():
         kernels.reset_launch_counts()
-        own.clear()
+        own.counts.clear()
 
-    # -- greedy through the batcher (int4 pool: K1, K2, K4) ---------------
+    # -- greedy through the batcher (int4 compute: K1, K2, K4 in the request
+    # threads, K3 over the pool's int8 container) --------------------------
     eng = SttEngine(dataclasses.replace(base, beam_size=1), model_name="large-v3", params=model)
     print(f"  [concurrent_greedy] warmup(): {eng.warmup():.2f} s (the pool's step graphs "
           f"included) [{card}]")
     pool = eng._batchers[cfg.n_audio_ctx]
-    print(f"  [concurrent_greedy] pool: {pool.S} slots, cache {pool.cache_len} rows, int4 carrier "
-          f"+ fp8 self cache: {pool.pool_bytes / 2**20:.1f} MiB of state; {len(pool.bounds)} "
+    print(f"  [concurrent_greedy] pool: {pool.S} slots, cache {pool.cache_len} rows, int8 "
+          f"container (int4 compute) + fp8 self cache: {pool.pool_bytes / 2**20:.1f} MiB of state; {len(pool.bounds)} "
           f"step graphs (read bounds {pool.bounds}), graph pool grown by "
           f"{pool.graph_pool_bytes / 2**20:.1f} MiB [{card}]")
     stats = chunk_stats(pool)
@@ -1356,8 +1393,9 @@ def concurrency_phase(torch, np, model, paths, card, requests, sequential) -> No
     wall, walls, metrics = run_concurrent("concurrent_greedy", eng, 1)
     paths["concurrent_greedy"] = dict(kernels.LAUNCHES)
     report_set("concurrent_greedy", "engine_greedy", wall, walls, metrics, -1)
-    need("concurrent_greedy", ("log_mel", "flash_attention", "decode_attention_i4"))
-    owned("concurrent_greedy_pool", [pool._loop], ("decode_attention_i4",), ("decode_attention",))
+    need("concurrent_greedy", ("log_mel", "flash_attention", "decode_attention",
+                               "decode_attention_i4"))
+    owned("concurrent_greedy_pool", [pool._loop], ("decode_attention",), ("decode_attention_i4",))
     require(stats, "concurrent_greedy: the batcher ran no chunk")
     steps = pool.steps_per_sync
     by_live = {}
@@ -1439,7 +1477,7 @@ def concurrency_phase(torch, np, model, paths, card, requests, sequential) -> No
         for i, w in enumerate(windows):
             audio = torch.from_numpy(w[None]).to(dev)
             xa1 = encode_xa_kv_q(cfg, model, compute_log_mel(audio, n_mels=cfg.n_mels,
-                                                             dtype=cfg.dtype), 4)
+                                                             dtype=cfg.dtype), 8)
             prompt = torch.tensor([sot], device=dev)
             solo_logits, _ = decoder_apply(cfg, model, prompt, 0,
                                            init_kv_cache(cfg, 1, 4, dtype=f8, device=dev), xa1)
@@ -1458,7 +1496,7 @@ def concurrency_phase(torch, np, model, paths, card, requests, sequential) -> No
             prefixes.append(k)
         worst = max(d / sd for d, sd, _ in diffs)
         print(f"  [pool vs solo] first-step logits (pool: N = {CONCURRENT} encode and prefill; "
-              f"solo: B = 1): max |diff| {max(d for d, _, _ in diffs):.4f}, at most "
+              f"solo: B = 1, the same int8 slab): max |diff| {max(d for d, _, _ in diffs):.4f}, at most "
               f"{worst:.3f} x the logits' std (bound 0.25), argmax agreeing in "
               f"{sum(a for _, _, a in diffs)} of {len(diffs)}; common token prefix with a solo "
               f"decode_window of {EQUAL_TOKENS} tokens: {prefixes}")
@@ -1521,7 +1559,373 @@ def concurrency_phase(torch, np, model, paths, card, requests, sequential) -> No
               f"{st['pool_bytes'] / 2**20:.1f} MiB [{card}]")
     print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     engb.shutdown()
-    StepLoop.advance = advance
+    own.close()
+
+
+STREAM_CHUNK_MS = 200  # phase 8: the wire chunk of a stream
+STREAM_SECONDS = 6.0  # phase 8: a stream's voiced clip
+CAP_SECONDS, CAP_CHUNK_S = 32.0, 4.0  # phase 8: the clip that passes the 30 s cap, its chunks
+STREAMS = 4  # phase 8: concurrent streams (parallel_requests and max_batch_size)
+SILERO_TOL = 1e-4  # phase 8: Silero on the card against its CPU version
+
+
+def wav_chunks(np, x, chunk_ms: int) -> tuple[list, bytes]:
+    """A clip as a port-written WAV cut into wire chunks of ``chunk_ms``: the
+    first chunk carries the 44-byte header and one byte more, so it and the
+    last are odd-sized and every sample in between straddles a cut."""
+    from sentiric_stt_whisper_service_tpu_torch.audio import write_wav
+
+    buf = io.BytesIO()
+    write_wav(buf, x)
+    raw = buf.getvalue()
+    step = 16 * chunk_ms * 2
+    cuts = list(range(44 + step + 1, len(raw), step))
+    chunks = [raw[a:b] for a, b in zip([0] + cuts, cuts + [len(raw)])]
+    require(any(len(c) % 2 for c in chunks), "no odd-sized chunk")
+    return chunks, raw
+
+
+def pct(values, q: float) -> float:
+    v = sorted(values)
+    return v[min(len(v) - 1, int(round(q * (len(v) - 1))))]
+
+
+def streaming_phase(torch, np, model, paths, card) -> None:
+    """Phase 8: streaming sessions and the Silero VAD on the card (see the
+    module docstring)."""
+    import dataclasses
+    import tempfile
+    import threading
+
+    from sentiric_stt_whisper_service_tpu_torch import kernels
+    from sentiric_stt_whisper_service_tpu_torch.config import Settings
+    from sentiric_stt_whisper_service_tpu_torch.models.graphs import DecodeGraphs, StepLoop
+    from sentiric_stt_whisper_service_tpu_torch.models.silero_vad import (
+        SileroVad,
+        write_silero_ggml,
+    )
+    from sentiric_stt_whisper_service_tpu_torch.runtime import (
+        RequestOptions,
+        StreamingSession,
+        SttEngine,
+        engine as eng_mod,
+        streaming,
+        vad,
+    )
+
+    relaxed = dict(quality_gate="off", logprob_threshold=-1e9, no_speech_threshold=1.0,
+                   min_segment_avg_prob=0.0)
+    dev = model.decoder.pos_emb.device
+    base = Settings(device=dev.type, compute_type="int4", language="auto", no_timestamps=False,
+                    model_filename="ggml-large-v3.bin", parallel_requests=1,
+                    stream_buffer_samples=8000, stream_incremental=False,
+                    stream_greedy_partials=True, **relaxed)
+    require(base.beam_size == BEAM and base.enable_vad, "the stock settings moved")
+    rng = np.random.default_rng(SEED + 8)
+    clip = voiced_like(rng, STREAM_SECONDS)
+    chunks, raw = wav_chunks(np, clip, STREAM_CHUNK_MS)
+
+    # Graph captures of every DecodeGraphs (the engine's classes and the gang's).
+    captures = []
+    new_loop = DecodeGraphs._new_loop
+
+    def counting(self, key, *a, **kw):
+        captures.append(key)
+        return new_loop(self, key, *a, **kw)
+
+    DecodeGraphs._new_loop = counting
+
+    def cap_of(samples: int, incremental: bool) -> int:
+        """The token cap a tick over ``samples`` asks for, as the engine rounds it."""
+        top = streaming.TICK_CAP_MAX if incremental else streaming.PARITY_CAP_MAX
+        want = max(streaming.TICK_CAP_MIN,
+                   int(samples / 16000 * streaming.TICK_TOKENS_PER_SECOND) + 8)
+        return eng_mod.token_cap_bucket(min(top, want))
+
+    def timed_ticks(session, incremental=False):
+        """Wraps the session's tick: (wall s, buffered s, cap) per tick."""
+        ticks, tick = [], session._tick
+
+        def timed():
+            n = session.buffer.size
+            t = time.perf_counter()
+            out = tick()
+            ticks.append((time.perf_counter() - t, n / 16000, cap_of(n, incremental)))
+            return out
+
+        session._tick = timed
+        return ticks
+
+    def run_stream(session, chunks_):
+        """Every chunk as fast as the session takes it, then EOS. Returns the
+        events before EOS, the EOS finals, each feed's (wall s, events) and
+        the EOS wall."""
+        events, feeds = [], []
+        for c in chunks_:
+            t = time.perf_counter()
+            out = session.feed(c)
+            feeds.append((time.perf_counter() - t, out))
+            events.extend(out)
+        t = time.perf_counter()
+        finals = session.feed(b"")
+        return events, finals, feeds, time.perf_counter() - t
+
+    def check_events(path, events, finals, session):
+        for e in events:
+            if not e.is_final:
+                require(e.result.text.endswith(" "), f"{path}: a partial does not end in ' '")
+        require(finals and all(e.is_final for e in finals), f"{path}: no finals on EOS")
+        require(session.buffer.size == 0, f"{path}: the buffer is not empty after EOS")
+        for e in events + finals:
+            require(e.result.t0 >= 0 and e.result.t1 >= 0, f"{path}: negative time")
+        done = [e.result.t0 for e in events + finals if e.is_final]
+        require(done == sorted(done), f"{path}: finals out of order: {done}")
+
+    def tick_line(path, ticks):
+        walls = [w for w, _, _ in ticks]
+        print(f"  [{path}] {len(ticks)} ticks (wall s @ buffered s, cap): " + ", ".join(
+            f"{w:.3f}@{b:.1f}/{c}" for w, b, c in ticks))
+        print(f"  [{path}] tick p50 {pct(walls, 0.5):.3f} s, p90 {pct(walls, 0.9):.3f} s "
+              f"[{card}]")
+        return walls
+
+    # -- 1. stream_parity -----------------------------------------------
+    eng = SttEngine(base, model_name="large-v3", params=model)
+    print(f"  [stream_parity] warmup(): {eng.warmup():.2f} s, {len(captures)} graph classes "
+          f"(window loops of {sorted(k[4] for k in captures if k[0] == 'greedy')} self-cache "
+          f"rows: the tick caps' and the sampled rung's; beam "
+          f"{sorted(k[5] for k in captures if k[0] == 'beam')}) [{card}]")
+    captures.clear()
+    session = StreamingSession(eng, RequestOptions())
+    ticks = timed_ticks(session)
+    kernels.reset_launch_counts()
+    events, feeds = [], []  # per chunk: (start s, end s, ticked, events)
+    for c in chunks:
+        n, t = len(ticks), time.perf_counter()
+        out = session.feed(c)
+        feeds.append((t, time.perf_counter(), len(ticks) > n, out))
+        events.extend(out)
+    tick_counts = dict(kernels.LAUNCHES)
+    pcm, lang = session.buffer.read(), session._detected_lang
+    decoded = []  # each window's token ids: the finalize, then the direct request
+    decode_one = eng._decode_one
+
+    def recording(*args, **kw):
+        res = decode_one(*args, **kw)
+        if res is not None:
+            decoded.append(np.asarray(res.tokens[0, : int(res.lengths[0])]))
+        return res
+
+    eng._decode_one = recording
+    t = time.perf_counter()
+    finals = session.feed(b"")
+    eos_wall = time.perf_counter() - t
+    paths["stream_parity"] = dict(kernels.LAUNCHES)
+    final_ids, decoded[:] = list(decoded), []
+    require(not captures, f"stream_parity: {len(captures)} graph class(es) captured in the "
+            f"ticks or the finalize: {[k[:6] for k in captures]}")
+    check_events("stream_parity", events, finals, session)
+    require(all(not e.is_final for e in events), "stream_parity: a final before EOS")
+    direct = eng.transcribe_pcm16(pcm, 16000, dataclasses.replace(RequestOptions(),
+                                                                 language=lang))
+    eng._decode_one = decode_one
+    direct = [r for r in direct if r.text]
+    require([(r.text, r.t0, r.t1, [k.text for k in r.tokens]) for r in direct]
+            == [(e.result.text, e.result.t0, e.result.t1, [k.text for k in e.result.tokens])
+                for e in finals]
+            and len(decoded) == len(final_ids)
+            and all(np.array_equal(a, b) for a, b in zip(decoded, final_ids)),
+            "stream_parity: the EOS finals differ from transcribe_pcm16 of the same buffer")
+    walls = tick_line("stream_parity", ticks)
+    crossed = next(i for i, f in enumerate(feeds) if f[2])  # the chunk that crossed 500 ms
+    first = next(i for i, f in enumerate(feeds) if f[3])  # the chunk that got the first partial
+    tick_delta = {k: tick_counts[k] for k in ("log_mel", "flash_attention", "decode_attention_i4")}
+    eos_delta = {k: paths["stream_parity"][k] - tick_counts[k]
+                 for k in ("beam_attention", "beam_cross_attention")}
+    require(all(tick_delta.values()), f"stream_parity: the ticks launched {tick_delta}")
+    require(all(eos_delta.values()), f"stream_parity: the EOS finals launched {eos_delta}")
+    print(f"  [stream_parity] {STREAM_SECONDS:.0f} s voiced WAV in {len(chunks)} chunks of "
+          f"{STREAM_CHUNK_MS} ms, language auto (pinned {lang!r}), beam {BEAM} finals, greedy "
+          f"partials: first partial {(feeds[first][1] - feeds[crossed][0]) * 1e3:.1f} ms after "
+          f"the chunk that crossed 500 ms arrived (chunk {crossed}; the partial came with "
+          f"chunk {first}); EOS -> last final {eos_wall:.3f} s "
+          f"(stream_p50_final_latency, one stream) [{card}]")
+    print(f"  [stream_parity] {sum(1 for e in events if not e.is_final)} partials, "
+          f"{len(finals)} finals equal to transcribe_pcm16 of the same {len(pcm) / 16000:.2f} s "
+          f"buffer (token ids of {len(final_ids)} window(s)); no graph captured in the ticks "
+          f"or the finalize; tick launches {tick_delta}, EOS {eos_delta}")
+
+    # -- 2. stream_incremental ------------------------------------------
+    session = StreamingSession(eng, RequestOptions(), incremental=True)
+    inc_ticks = timed_ticks(session, incremental=True)
+    kernels.reset_launch_counts()
+    events, fed_bytes = [], -44
+    for c in chunks:
+        events.extend(session.feed(c))
+        fed_bytes += len(c)
+        require(session.buffer.size == fed_bytes // 2 - session.trimmed_samples
+                <= streaming.MAX_BUFFER_SAMPLES,
+                "stream_incremental: the buffer is not the uncommitted tail")
+    trimmed = session.trimmed_samples
+    finals = session.feed(b"")
+    paths["stream_incremental"] = dict(kernels.LAUNCHES)
+    check_events("stream_incremental", events, finals, session)
+    commits = [e for e in events if e.is_final]
+    tick_line("stream_incremental", inc_ticks)
+    print(f"  [stream_incremental] {len(commits)} commit(s) before EOS "
+          f"{[(e.result.t0, e.result.t1) for e in commits]}, {trimmed} samples trimmed, "
+          f"{len(finals)} final(s) on EOS")
+    need_launched(paths, "stream_incremental", ("log_mel", "flash_attention",
+                                                "decode_attention_i4"))
+
+    # -- 3. stream_cap ----------------------------------------------------
+    cap_chunks, _ = wav_chunks(np, voiced_like(rng, CAP_SECONDS), int(CAP_CHUNK_S * 1000))
+    session = StreamingSession(eng, RequestOptions())
+    cap_ticks = timed_ticks(session)
+    events = []
+    for c in cap_chunks[:-1]:
+        events.extend(session.feed(c))
+    require(all(not e.is_final for e in events), "stream_cap: a final before the cap")
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    flushed = session.feed(cap_chunks[-1])
+    flush_wall = time.perf_counter() - t
+    paths["stream_cap"] = dict(kernels.LAUNCHES)
+    finals = [e for e in flushed if e.is_final]
+    require(finals and session.buffer.size == 0, "stream_cap: the 30 s cap flushed no finals")
+    need_launched(paths, "stream_cap", ("beam_attention", "beam_cross_attention"))
+    tick_line("stream_cap", cap_ticks)
+    print(f"  [stream_cap] {CAP_SECONDS:.0f} s in {CAP_CHUNK_S:.0f} s chunks: the tick past the "
+          f"cap {flush_wall:.3f} s with the beam-{BEAM} re-decode, {len(finals)} final(s) up to "
+          f"{finals[-1].result.t1 / 100:.2f} s; launches {paths['stream_cap']} [{card}]")
+    session.feed(b"")
+    eng.shutdown()
+
+    # -- 4. concurrent_streams ------------------------------------------
+    own = OwnLaunches(StepLoop)
+    engc = SttEngine(dataclasses.replace(base, parallel_requests=STREAMS,
+                                         max_batch_size=STREAMS, language="en",
+                                         request_queue_timeout_ms=600_000),
+                     model_name="large-v3", params=model)
+    print(f"  [concurrent_streams] warmup(): {engc.warmup():.2f} s [{card}]")
+    clips = [wav_chunks(np, voiced_like(rng, STREAM_SECONDS), STREAM_CHUNK_MS)[0]
+             for _ in range(STREAMS)]
+    results, errors = [None] * STREAMS, []
+    start = threading.Barrier(STREAMS + 1)
+
+    def go(i):
+        try:
+            s = StreamingSession(engc, RequestOptions(language="en"))
+            tk = timed_ticks(s)
+            start.wait(timeout=120)
+            results[i] = (tk, *run_stream(s, clips[i]), s)
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(f"stream {i}: {type(e).__name__}: {e}")
+
+    kernels.reset_launch_counts()
+    own.counts.clear()
+    threads = [threading.Thread(target=go, args=(i,)) for i in range(STREAMS)]
+    for th in threads:
+        th.start()
+    start.wait(timeout=120)
+    t = time.perf_counter()
+    for th in threads:
+        th.join(timeout=900)
+    wall = time.perf_counter() - t
+    require(not any(th.is_alive() for th in threads), "concurrent_streams: a stream hung")
+    require(not errors, f"concurrent_streams: {errors}")
+    paths["concurrent_streams"] = dict(kernels.LAUNCHES)
+    need_launched(paths, "concurrent_streams", ("log_mel", "flash_attention",
+                                                "beam_attention", "beam_cross_attention"))
+    pool = engc._batchers[model.cfg.n_audio_ctx]
+    own.record(paths, "concurrent_streams_pool", [pool._loop], ("decode_attention",),
+               ("decode_attention_i4",))
+    own.close()
+    all_ticks = []
+    for i, (tk, events, finals, _, eos_w, s) in enumerate(results):
+        check_events(f"concurrent_streams {i}", events, finals, s)
+        all_ticks.extend(w for w, _, _ in tk)
+        print(f"  [concurrent_streams] stream {i}: {len(tk)} ticks, {len(finals)} final(s), "
+              f"EOS -> last final {eos_w:.3f} s")
+    print(f"  [concurrent_streams] {STREAMS} streams of {STREAM_SECONDS:.0f} s at once in "
+          f"{wall:.3f} s: tick p50 {pct(all_ticks, 0.5):.3f} s, p90 {pct(all_ticks, 0.9):.3f} s "
+          f"(one stream: p50 {pct(walls, 0.5):.3f}, p90 {pct(walls, 0.9):.3f}); pool "
+          f"{pool.pool_bytes / 2**20:.1f} MiB; launches {paths['concurrent_streams']} [{card}]")
+    engc.shutdown()
+    DecodeGraphs._new_loop = new_loop
+
+    # -- 5. silero --------------------------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/ggml-silero-v6.2.0.bin"
+        write_silero_ggml(path, SileroVad.random_init("cpu", seed=SEED).params)
+        require(vad.load_silero(path, device=dev.type), "silero: load_silero refused the file")
+    gate = vad._vad_model
+    require(isinstance(gate, SileroVad) and gate.device.type == dev.type,
+            "silero: not on the engine's device")
+    plain = SileroVad(gate.params, "cpu")
+    audio30 = voiced_like(rng, 30.0)
+    got, want = gate(audio30), plain(audio30)
+    err = float(np.abs(got - want).max())
+    require(got.shape == want.shape == (len(audio30) // 512,) and err <= SILERO_TOL,
+            f"silero: card vs CPU max_abs_err {err:.3e} (tol {SILERO_TOL:.0e})")
+    ms = time_ms(lambda: gate(audio30), iters=10)
+    silent = np.zeros(48000, np.float32)
+    decisions = [vad.is_speech_detected(x, 16000, base.vad_threshold, 250)
+                 for x in (clip, silent)]
+    eng = SttEngine(base, model_name="large-v3", params=model)
+    res = eng.transcribe_pcm16((clip * 32767).astype(np.int16), 16000, RequestOptions(beam_size=1))
+    eng.shutdown()
+    vad.set_vad_model(None)
+    require(bool(res), "silero: the request through the Silero gate returned nothing")
+    print(f"  [silero] random init (seed {SEED}) written and loaded: 30 s clip ({len(got)} "
+          f"frames) on the card vs the CPU's cell loop: max_abs_err {err:.3e} (tol "
+          f"{SILERO_TOL:.0e}: fp32, TF32 off, sums in another order over {len(got)} steps); "
+          f"{ms:.3f} ms per 30 s of audio (host copies included) [{card}]; gate at "
+          f"{base.vad_threshold}: voiced {decisions[0]}, silent {decisions[1]}; one "
+          f"transcribe_pcm16 through the gate: {len(res)} result(s), language "
+          f"{res[0].language!r}")
+
+
+def need_launched(paths, path, names, absent=()) -> None:
+    """Each kernel of ``names`` launched on ``path``, none of ``absent``."""
+    for name in names:
+        require(paths[path][name] > 0, f"{path}: kernel {name} was not launched")
+    for name in absent:
+        require(paths[path][name] == 0, f"{path}: kernel {name} was launched")
+
+
+class OwnLaunches:
+    """The launches that each graphed ``StepLoop``'s replays add, per loop: a
+    class-level wrap of ``StepLoop.advance`` (``close()`` undoes it), so that
+    a pool's or a gang's own step graphs are counted apart from the eager
+    launches of the threads beside them."""
+
+    def __init__(self, step_loop):
+        import collections
+
+        self._cls, advance = step_loop, step_loop.advance
+        self._advance = advance
+        self.counts = collections.defaultdict(collections.Counter)  # id(loop) -> launches
+        counts = self.counts
+
+        def counted(loop, bound):
+            advance(loop, bound)
+            if loop.graphs is not None:
+                counts[id(loop)].update(loop.graphs[bound][1])
+
+        step_loop.advance = counted
+
+    def record(self, paths, path, loops, names, absent=()) -> None:
+        """The launches of ``loops`` since ``counts`` was cleared as path
+        ``path``; each of ``names`` launched, none of ``absent``."""
+        from sentiric_stt_whisper_service_tpu_torch import kernels
+
+        paths[path] = {k: sum(self.counts[id(lp)][k] for lp in loops) for k in kernels.LAUNCHES}
+        need_launched(paths, path, names, absent)
+        print(f"  [{path}] launches of its own step graphs: {paths[path]}")
+
+    def close(self) -> None:
+        self._cls.advance = self._advance
 
 
 def profile_slices(torch, cfg, model, audio, timed, card) -> None:

@@ -121,9 +121,10 @@ class Settings:
 
     sample_rate: int = 16000
     stream_buffer_samples: int = 8000  # 500 ms @ 16 kHz
-    # Streaming settings, read by the streaming session (not ported yet):
-    # commit stable segments early and trim the buffer; decode partial
-    # ticks greedy even when the default strategy is beam.
+    # Streaming settings (runtime/streaming.py, and the tick classes that
+    # SttEngine.warmup() captures): commit stable segments early and trim
+    # the buffer; decode partial ticks greedy even when the default
+    # strategy is beam.
     stream_incremental: bool = False
     stream_greedy_partials: bool = True
 

@@ -10,6 +10,8 @@ into its layer's submodule. Quantized and fused leaves map as well
 so a test can quantize on either side and compare. ``to_numpy_tree`` is
 the inverse for an unquantized module: the same pytree layout with numpy
 leaves (the checkpoint writer's input, and what tests compare).
+``silero_from_numpy`` carries the JAX package's Silero VAD parameters
+across (the same names and torch layouts on both sides).
 """
 
 from __future__ import annotations
@@ -87,6 +89,15 @@ def from_jax_numpy(tree: dict, cfg: WhisperConfig, device, dtype=None) -> Whispe
     fill(m_dec, {"ln": dec["ln"]})
     return model
 
+
+def silero_from_numpy(tree: dict, device) -> dict:
+    """The JAX package's Silero VAD parameters with numpy leaves
+    (``jax.tree.map(np.asarray, params)``) → ``models/silero_vad``'s dict of
+    fp32 tensors on ``device``. Both packages keep torch's layouts (conv
+    weights OIT, LSTM gates i, f, g, o), so every leaf carries over as it
+    is."""
+    return {name: torch.from_numpy(np.array(a, np.float32)).to(device)
+            for name, a in tree.items()}
 
 
 def stack_layers(per_layer: list[dict]) -> dict:

@@ -7,3 +7,4 @@ from .engine import (  # noqa: F401
     TranscriptionResult,
 )
 from .vad import is_speech_detected, set_vad_model  # noqa: F401
+from .streaming import StreamEvent, StreamingSession  # noqa: F401

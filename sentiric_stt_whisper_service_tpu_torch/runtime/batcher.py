@@ -12,10 +12,10 @@ device and zero-filled, so an empty slot's slab holds no garbage:
   tokens, tok_lps  [S, ctx]        sampled tokens and their log-probabilities
   pos, done, forced_eot, sample_begin, max_len, sum_lp, no_speech   [S]
   kv               [L, S, H, cache_len, hd]   self cache, one row per position
-  xa_kv            the cross slab per slot in the pool's form: the packed int4
-                   carrier [L, S, H, hd, F/2] + scales read by K4
-                   (``kv_bits=4``), int8 + scales (``kv_bits=8``) or the
-                   compute dtype (``kv_bits=0``), both read by K3
+  xa_kv            the cross slab per slot in the pool's form: int8
+                   [L, S, H, hd, F] + one scale per position [L, S, H, F]
+                   (``kv_bits=4`` and ``8``, read by K3) or the compute dtype
+                   (``kv_bits=0``, read by K3)
   last_logits      [S, V]           logits for each slot's next position
 
 What differs from the JAX package:
@@ -27,14 +27,14 @@ What differs from the JAX package:
     and rows a slot's previous request left, are masked and each is
     overwritten before it is first read, so a recycled slot needs no
     clearing.
-  * **The int4 carrier stays packed.** The JAX package unpacks it into an
-    int8 container at admission (the same dequantized values); here the
-    slab keeps the carrier, which halves the pool. A raw window is encoded
-    to the pool's form, the form the engine's one-shot path decodes over,
-    so a request's cross K/V does not depend on whether it was batched (the
-    JAX package encodes raw windows to int8 in an int4 pool, a finer slab
-    than its one-shot path's). A request whose cross K/V is in another form
-    than the pool's is rejected.
+  * **The int4 pool is an int8 container**, as in the JAX package: a
+    packed int4 carrier from ``submit_encoded`` is unpacked into it at
+    admission (its values in [-7, 7] keep their int4 scales, so the decode
+    equals the one-shot int4 path's), and a raw window is encoded at 8 bits
+    and its int8 cross K/V handed back with the result. The step reads the
+    container with K3. At S = 8 the large-v3 container holds 32 x 8 x 20 x
+    64 x 1500 bytes = 0.49 GB each for K and V, twice the carrier. A
+    request whose cross K/V fits neither form of the pool is rejected.
   * **CUDA graphs.** On the card each step replays a CUDA graph: the pool's
     state tensors are its static buffers, admission writes them eagerly
     between chunks, and there is one graph per self-cache read bound
@@ -75,6 +75,7 @@ from ..models.whisper import (
     precompute_xa_kv,
 )
 from ..ops import compute_log_mel
+from ..ops.quant import unpack_xa_kv
 
 
 @dataclasses.dataclass
@@ -110,8 +111,9 @@ class _Request:
     should_abort: Optional[callable] = None  # polled once per step chunk
 
 
-_XA_NAMES = {4: ("k_p", "v_p", "k_scale", "v_scale"), 8: ("k_q", "v_q", "k_scale", "v_scale"),
+_XA_NAMES = {4: ("k_q", "v_q", "k_scale", "v_scale"), 8: ("k_q", "v_q", "k_scale", "v_scale"),
              0: ("k", "v")}
+
 
 class ContinuousBatcher:
     def __init__(
@@ -179,7 +181,7 @@ class ContinuousBatcher:
         hd = cfg.n_text_state // cfg.n_text_head
         L, H, F = cfg.n_text_layer, cfg.n_text_head, self.xa_ctx
         names = _XA_NAMES[self.kv_bits]
-        slab = (L, S, H, hd, F // 2 if self.kv_bits == 4 else F)
+        slab = (L, S, H, hd, F)
         xa = {n: torch.zeros(slab, dtype=torch.int8 if self.kv_bits else cfg.dtype, device=dev)
               for n in names[:2]}
         xa.update({n: torch.zeros((L, S, H, F), dtype=torch.float32, device=dev)
@@ -265,12 +267,13 @@ class ContinuousBatcher:
     # Device work
     # ------------------------------------------------------------------
     def _encode(self, audio: np.ndarray) -> dict:
-        """[N, samples] audio → the pool's form of cross K/V, one launch of
+        """[N, samples] audio → the pool's form of cross K/V (int8 in a
+        quantized pool, as the JAX package's ``_encode_op``), one launch of
         each stage for the whole tick (K1, then K2 at B = N on the card)."""
         x = to_device(np.ascontiguousarray(audio), self.device)
         mel = compute_log_mel(x, n_mels=self.cfg.n_mels, dtype=self.cfg.dtype)
         return precompute_xa_kv(self.cfg, self.params, encoder_apply(self.cfg, self.params, mel),
-                                self.kv_bits)
+                                8 if self.kv_bits else 0)
 
     def _step_fn(self):
         """One greedy step of every slot (``_step_chunk_op``'s body),
@@ -345,7 +348,8 @@ class ContinuousBatcher:
                 # engine reuses it for the alignment pass and fallback rungs.
                 for j, (_, r) in enumerate(raws):
                     r.xa_kv = {k: v[:, j : j + 1] for k, v in enc.items()}
-            parts.extend(r.xa_kv for _, r in encs)
+            # A packed int4 carrier is unpacked into the int8 container.
+            parts.extend(unpack_xa_kv(r.xa_kv) if self.kv_bits else r.xa_kv for _, r in encs)
             for p in parts:
                 if set(p) != names:
                     raise ValueError(f"cross K/V {sorted(p)} does not fit a kv_bits="

@@ -63,9 +63,10 @@ What differs from the JAX package:
     here: the encoder's attention runs K2 on the card (the engine says so in
     its log when it is built).
   * ``warmup()`` captures the decode graph classes of the configured ladder
-    and, at ``parallel_requests`` > 1, builds the batcher's pools (their step
-    graphs) or the gang's batch buckets (the JAX package compiles its shape
-    classes there).
+    and of a streaming session's greedy partial ticks, and, at
+    ``parallel_requests`` > 1, builds the batcher's pools (their step graphs)
+    or the gang's batch buckets (the JAX package compiles its shape classes
+    there).
 
 ``PerformanceMetrics.stages_ms`` splits a request's time into language
 detection, encode, decode, alignment pass and prosody with clustering
@@ -401,8 +402,9 @@ class SttEngine:
         ``parallel_requests`` > 1 it also builds the batcher's pool of every
         audio_ctx width a greedy first rung can meet (its step graphs), or
         captures the beam gang's class at every batch bucket. Language
-        detection, the alignment pass and prosody run once. Returns the
-        seconds spent."""
+        detection, the alignment pass and prosody run once. Then the
+        classes of a streaming session's partial ticks
+        (``_warmup_tick_classes``). Returns the seconds spent."""
         t0 = time.perf_counter()
         s = self.settings
         sot = list(self.tokenizer.sot_sequence("en" if self.cfg.is_multilingual else None))
@@ -448,6 +450,7 @@ class SttEngine:
                 sample_begin=len(sot), sot_index=0, beam_size=s.beam_size,
                 max_len=min(self.cfg.n_text_ctx, prefill + SAMPLE_LEN), prefill_len=prefill,
                 xa_f=self.cfg.n_audio_ctx, use_timestamps=True))
+        self._warmup_tick_classes(clip, sot)
         if not s.no_timestamps:
             seq = np.asarray(sot + [100 + i for i in range(8)], np.int64)
             with self._eager, self._device.shared():
@@ -457,6 +460,54 @@ class SttEngine:
             with self._device.shared():
                 torch.cuda.synchronize(self.device)
         return time.perf_counter() - t0
+
+    def _serving_ctx_buckets(self) -> list:
+        """(n_ctx, lo_s, hi_s) of every encoder width a serving window can
+        decode at (None: the full context), with the range of real-audio
+        seconds that routes to it: one entry for a fixed audio_ctx, the
+        bucket walk under audio_ctx = -1."""
+        full = self.cfg.n_audio_ctx
+        if self.settings.audio_ctx != -1:
+            return [(self._window_ctx(N_SAMPLES), 0.0, 30.0)]
+        out, lo = [], 0.0
+        for b in self.AUDIO_CTX_BUCKETS:
+            if b > full:
+                continue
+            hi = min(b * 320 / SAMPLE_RATE, 30.0)
+            out.append((b if b < full else None, lo, hi))
+            lo = hi
+        if not out or out[-1][0] is not None:
+            out.append((None, lo, 30.0))
+        return out
+
+    def _warmup_tick_classes(self, clip: np.ndarray, sot: list) -> None:
+        """Capture the capped greedy classes that a streaming session's
+        partial tick can reach under the current settings: every
+        TOKEN_CAP_BUCKETS cap that the tick caps of ``runtime/streaming.py``
+        round to, at every serving ctx bucket, on the engine's own class
+        (the tick path at ``parallel_requests`` == 1, and the lone-stream
+        fast path above it); at ``parallel_requests`` > 1 the pool of each
+        width serves every cap from its own step graphs."""
+        s = self.settings
+        if s.temperature > 0.0 or not (
+                s.beam_size <= 1 or s.stream_incremental or s.stream_greedy_partials):
+            return
+        from .streaming import PARITY_CAP_MAX, TICK_CAP_MAX, TICK_CAP_MIN, TICK_TOKENS_PER_SECOND
+
+        cap_max = TICK_CAP_MAX if s.stream_incremental else PARITY_CAP_MAX
+
+        def cap_of(seconds: float) -> int:
+            return token_cap_bucket(
+                min(cap_max, max(TICK_CAP_MIN, int(seconds * TICK_TOKENS_PER_SECOND) + 8)))
+
+        for n_ctx, lo, hi in self._serving_ctx_buckets():
+            caps = [c for c in TOKEN_CAP_BUCKETS if cap_of(lo + 1e-3) <= c <= cap_of(hi)]
+            for cap in caps:
+                self._decode_one(None, sot, len(sot), 0, 0.0, 1, 1,
+                                 should_abort=_cut_after_first_poll(), sample_len=cap,
+                                 window_audio=clip, n_ctx=n_ctx)
+            if s.parallel_requests > 1 and caps:
+                self._get_batcher(n_ctx)
 
     def shutdown(self):
         """Stop the batcher's and the gang's workers (rejecting what they
@@ -556,7 +607,11 @@ class SttEngine:
         # VAD gate: silence → single empty-text result with a neutral
         # affective payload, language "unknown", speaker "unknown", t1 in
         # ms (the reference's quirks; min speech 250 ms inside the VAD).
-        if s.enable_vad and not is_speech_detected(audio, SAMPLE_RATE, s.vad_threshold, 250):
+        # An installed Silero VAD runs on its device: the gate holds the DeviceLock shared.
+        with self._device.shared():
+            speech = not s.enable_vad or is_speech_detected(audio, SAMPLE_RATE,
+                                                            s.vad_threshold, 250)
+        if not speech:
             tags = AffectiveTags()
             res = TranscriptionResult(
                 text="", language="unknown", prob=0.0,

@@ -9,10 +9,9 @@ contiguous run of frames above ``threshold`` spans ``min_duration_ms``.
 It is numpy on the host.
 
 Install a model with ``set_vad_model(fn, frame_ms)`` where
-``fn(audio) -> [n_frames] probs``. ``load_silero(path)``, which does this
-from a ggml-silero checkpoint in the JAX package, needs the Silero v5
-network (``models/silero_vad.py``), which the port does not have yet: it
-raises ``NotImplementedError``.
+``fn(audio) -> [n_frames] probs``; ``load_silero(path, device)`` installs
+the Silero v5 network (``models/silero_vad.SileroVad``, on ``device``)
+from a ggml-silero checkpoint.
 """
 
 from __future__ import annotations
@@ -35,15 +34,23 @@ def set_vad_model(
     _vad_frame_ms = frame_ms if fn is not None else 10.0
 
 
-def load_silero(path: str) -> bool:
-    """Load a ggml-silero checkpoint as the VAD backend: not ported yet.
-    The Silero network (``models/silero_vad.py``, ROADMAP queue 1 item 9)
-    is missing, so this raises rather than leave the energy VAD in place
-    unannounced."""
-    raise NotImplementedError(
-        f"load_silero({path!r}): the Silero VAD network (models/silero_vad.py) is not "
-        "ported yet; the builtin energy VAD stays installed"
-    )
+def load_silero(path: str, device="auto") -> bool:
+    """Install the Silero VAD from a ggml-silero checkpoint as the VAD
+    backend, on ``device`` ("auto" / "cuda": the card, raising without one;
+    "cpu": the plain versions). Returns True when it is installed, and
+    False, leaving the VAD as it was, when the file is missing or cannot be
+    parsed (``OSError``, ``ValueError``): the JAX package's fallback to the
+    energy VAD. An error on the device propagates."""
+    from ..models.silero_vad import SileroVad, load_silero_ggml
+    from .engine import resolve_device
+
+    try:
+        tensors = load_silero_ggml(path)
+    except (OSError, ValueError):
+        return False
+    model = SileroVad(tensors, resolve_device(device))
+    set_vad_model(model, frame_ms=model.frame_ms)
+    return True
 
 
 def frame_speech_probs(audio: np.ndarray, sample_rate: int = 16000) -> np.ndarray:

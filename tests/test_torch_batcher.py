@@ -11,10 +11,11 @@ tests' tolerances). Covered: one window, a truncated decode, concurrent
 submissions, carried prompts (one capped at 255 rows, ``cache_len - 1``),
 slot recycling with a slot reused by a shorter prompt, one encode per
 admission tick, a cropped audio_ctx pool, a decode past the first read
-bound, the int4-carrier and int8 pools against the JAX package's int8
-container, a raw window in an int4 pool (the port's carrier beside the JAX
-package's int8 encode, each against a solo decode over its own form),
-abort mid-decode and a failing admission. ``decoder_step`` with
+bound, the int4 and int8 pools fed encoded slabs against the JAX package's
+(both int8 containers), a raw window in an int4 pool (encoded at 8 bits,
+token-exact with the JAX int4 pool, its int8 cross K/V handed back) and an
+int4 carrier unpacked at admission (as the solo int4 decode), abort
+mid-decode and a failing admission. ``decoder_step`` with
 per-row positions is held against the JAX package's vector-``pos`` step.
 """
 
@@ -32,7 +33,6 @@ from sentiric_stt_whisper_service_tpu.tokenizer import fallback_tokenizer as ref
 from sentiric_stt_whisper_service_tpu_torch.models import sampling, whisper
 from sentiric_stt_whisper_service_tpu_torch.models.params import from_jax_numpy
 from sentiric_stt_whisper_service_tpu_torch.ops import N_SAMPLES, compute_log_mel
-from sentiric_stt_whisper_service_tpu_torch.ops.quant import unpack_nibbles_i8
 from sentiric_stt_whisper_service_tpu_torch.runtime.batcher import ContinuousBatcher
 from sentiric_stt_whisper_service_tpu_torch.tokenizer import fallback_tokenizer
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
@@ -227,10 +227,10 @@ def test_decode_past_64_tokens(stack, pools):
 
 @pytest.mark.parametrize("bits", [4, 8])
 def test_quantized_pool(stack, bits):
-    """kv_bits=4 keeps the packed carrier (read by K4's plain version here)
-    and equals the JAX pool, which unpacks it into an int8 container; an
-    int8 pool equals the JAX int8 pool. Both from the same quantized cross
-    K/V, handed over encoded."""
+    """kv_bits=4 unpacks the packed carrier into its int8 container (read by
+    K3's plain version here) and equals the JAX pool, which does the same;
+    an int8 pool equals the JAX int8 pool. Both from the same quantized
+    cross K/V, handed over encoded."""
     slabs_r = [ref.precompute_xa_kv(CFG_R, stack.params, encoder_out(stack, make_window(20 + i)),
                                     bits) for i in range(2)]
     mine, theirs = stack.pool(max_slots=2, kv_bits=bits), stack.ref_pool(max_slots=2, kv_bits=bits)
@@ -242,8 +242,7 @@ def test_quantized_pool(stack, bits):
     finally:
         mine.shutdown()
         theirs.shutdown()
-    names = {4: {"k_p", "v_p"}, 8: {"k_q", "v_q"}}[bits]
-    assert names <= set(mine.state.xa_kv)
+    assert {"k_q", "v_q"} <= set(mine.state.xa_kv)
     for xa, (got, want) in zip(slabs_r, results):
         assert_same(got, want, f"jax int{bits} pool")
         solo = stack.solo({k: torch.tensor(np.asarray(v)) for k, v in xa.items()},
@@ -252,29 +251,36 @@ def test_quantized_pool(stack, bits):
 
 
 def test_int4_pool_raw_windows(stack):
-    """A raw window in a kv_bits=4 pool: the port encodes it to the int4
-    carrier, the form its one-shot path decodes over, where the JAX package
-    encodes it to int8. Each pool equals a solo decode over its own form, and
-    the two cross slabs differ by no more than the two quantizers' half
-    steps: the difference is the cross K/V's precision and nothing else."""
+    """A kv_bits=4 pool is an int8 container, as the JAX package's: a raw
+    window is encoded at 8 bits, decodes token-exact with the JAX kv_bits=4
+    pool and hands back its int8 cross K/V, equal to the JAX package's
+    encoding; an int4 carrier from submit_encoded is unpacked at admission
+    and decodes as the solo int4 path does."""
     window = make_window(21)
+    xa4 = stack.encode(window, bits=4)
     mine, theirs = stack.pool(max_slots=2, kv_bits=4), stack.ref_pool(max_slots=2, kv_bits=4)
     try:
         ((got, want),) = both((mine, theirs), [(window, stack.sot, 0, 12)])
+        carried = mine.submit_encoded(xa4, stack.sot, 0, max_tokens=12).result(timeout=TIMEOUT)
     finally:
         mine.shutdown()
         theirs.shutdown()
-    xa4, xa8 = stack.encode(window, bits=4), stack.encode(window, bits=8)
-    assert set(got["xa_kv"]) == set(xa4) and set(want["xa_kv"]) == set(xa8)
-    for name, t in xa4.items():
+    assert {"k_q", "v_q", "k_scale", "v_scale"} == set(mine.state.xa_kv)
+    assert mine.state.xa_kv["k_q"].dtype == torch.int8
+    assert mine.state.xa_kv["k_q"].shape[-1] == CFG.n_audio_ctx
+    assert_same(got, want, "jax kv_bits=4 pool")
+    xa8 = stack.encode(window, bits=8)
+    assert set(got["xa_kv"]) == set(xa8) == set(want["xa_kv"])
+    for name, t in xa8.items():
         torch.testing.assert_close(got["xa_kv"][name], t, rtol=0, atol=0)
-    assert_same(got, stack.solo(xa4, stack.sot, 0, 12), "port: solo over the int4 carrier")
-    assert_same(want, stack.solo(xa8, stack.sot, 0, 12), "jax: solo over int8")
-    for kind in ("k", "v"):
-        deq4 = unpack_nibbles_i8(xa4[f"{kind}_p"]).float() * xa4[f"{kind}_scale"][:, :, :, None]
-        deq8 = xa8[f"{kind}_q"].float() * xa8[f"{kind}_scale"][:, :, :, None]
-        half_steps = (xa4[f"{kind}_scale"] + xa8[f"{kind}_scale"])[:, :, :, None] / 2
-        assert bool(((deq4 - deq8).abs() <= half_steps * (1 + 1e-5)).all()), kind
+        theirs_t = torch.tensor(np.asarray(want["xa_kv"][name]))
+        if name.endswith("scale"):
+            torch.testing.assert_close(got["xa_kv"][name], theirs_t, rtol=1e-5, atol=0)
+        else:  # fp32 encoders agree to ~1e-6: a value may sit on a rounding edge
+            diff = (got["xa_kv"][name].int() - theirs_t.int()).abs()
+            assert int(diff.max()) <= 1 and float((diff > 0).float().mean()) < 1e-3, name
+    assert_same(got, stack.solo(xa8, stack.sot, 0, 12), "solo over int8")
+    assert_same(carried, stack.solo(xa4, stack.sot, 0, 12), "solo over the int4 carrier")
 
 
 def encoder_out(stack, window):

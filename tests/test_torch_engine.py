@@ -290,21 +290,37 @@ def test_refused_settings(params):
 
 def test_warmup_then_request(params):
     """warmup() on the CPU (no graphs to capture there) runs every rung's
-    decode cut short, the detect pass, the alignment pass and prosody; a
-    request afterwards still equals the reference's."""
+    decode cut short, then every streaming tick class (each serving ctx
+    bucket's reachable caps, the JAX package's ``_warmup_tick_classes``),
+    the detect pass, the alignment pass and prosody; a request afterwards
+    still equals the reference's."""
     pair = make_pair(params, audio_ctx=-1, no_timestamps=False)
     polls = []
     decode_one = pair[0]._decode_one
 
     def counting(*args, **kw):
-        polls.append((args[4], args[5], kw["should_abort"] is not None))
+        polls.append((args[4], args[5], kw["should_abort"] is not None, kw.get("n_ctx"),
+                      kw.get("sample_len", engine.SAMPLE_LEN)))
         return decode_one(*args, **kw)
 
     pair[0]._decode_one = counting
     assert pair[0].warmup() > 0.0
     del pair[0]._decode_one
+    full = engine.SAMPLE_LEN
     # rung 0 and the sampled rung at full context, then greedy at 384, 768, 1152
-    assert polls == [(0.0, 1, True), (0.2, 1, True)] + [(0.0, 1, True)] * 3
+    ladder = [(0.0, 1, True, None, full), (0.2, 1, True, None, full)] + [
+        (0.0, 1, True, b, full) for b in (384, 768, 1152)]
+    # the tick classes: each ctx bucket's caps, as the JAX package's warm-up asks for them
+    ticks = []
+    pair[1]._decode_one = lambda *a, **kw: ticks.append(
+        (0.0, 1, True, kw["n_ctx"], kw["sample_len"]))
+    try:
+        pair[1]._warmup_tick_classes()
+    finally:
+        del pair[1]._decode_one
+    assert [t[3:] for t in ticks] == [(384, 32), (384, 64), (384, 128), (768, 128), (768, 224),
+                                      (1152, 224), (None, 224)]
+    assert polls == ladder + ticks
     got, _ = run_both(pair, CLIP, language="en")
     assert got
 

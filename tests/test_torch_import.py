@@ -20,6 +20,8 @@ MODULES = [
     "sentiric_stt_whisper_service_tpu_torch.models",
     "sentiric_stt_whisper_service_tpu_torch.models.beam",
     "sentiric_stt_whisper_service_tpu_torch.models.params",
+    "sentiric_stt_whisper_service_tpu_torch.models.silero_vad",
+    "sentiric_stt_whisper_service_tpu_torch.native",
     "sentiric_stt_whisper_service_tpu_torch.ops",
     "sentiric_stt_whisper_service_tpu_torch.ops.beam_attention",
     "sentiric_stt_whisper_service_tpu_torch.ops.decode_attention",
@@ -39,6 +41,7 @@ MODULES = [
     "sentiric_stt_whisper_service_tpu_torch.runtime.batcher",
     "sentiric_stt_whisper_service_tpu_torch.runtime.engine",
     "sentiric_stt_whisper_service_tpu_torch.runtime.gang",
+    "sentiric_stt_whisper_service_tpu_torch.runtime.streaming",
     "sentiric_stt_whisper_service_tpu_torch.runtime.vad",
     "sentiric_stt_whisper_service_tpu_torch.text",
 ]

@@ -2,7 +2,9 @@
 row of the ``kernels`` JSON line each) has every launch counter of
 ``kernels.LAUNCHES``, each with a source in ``csrc/`` and the line of the
 ``pl.pallas_call`` it replaces, and its ``--profile`` name list covers every
-``__global__`` function of ``csrc/``, so the breakdown drops none.
+``__global__`` function of ``csrc/``, so the breakdown drops none. Its
+docstring numbers phases 1 to 8, and phase 8's wire chunks carry the WAV header
+and odd byte counts.
 chip_smoke.py's top level is stdlib only, so it imports here without a card."""
 
 import importlib.util
@@ -36,3 +38,32 @@ def test_profile_names_cover_every_kernel_function():
     names = set(re.findall(r"__global__\s+void\s+(\w+)\s*\(", text))
     assert "beam_cross_attention_kernel" in names
     assert names == set(_smoke().PROFILE_KERNELS)
+
+
+def test_docstring_numbers_every_phase():
+    """The module docstring describes phases 1 to 8, in order."""
+    doc = _smoke().__doc__
+    numbers = [int(n) for n in re.findall(r"^(\d)\. ", doc, flags=re.M)]
+    assert numbers == list(range(1, 9))
+
+
+def test_stream_chunks_carry_the_header_and_odd_counts():
+    """Phase 8's wire chunks: a port-written WAV whose first chunk holds the
+    44-byte header and one byte more (odd), the rest cut every 200 ms; the
+    port's StreamBuffer reads back every sample."""
+    import numpy as np
+
+    from sentiric_stt_whisper_service_tpu_torch.native import StreamBuffer
+
+    smoke = _smoke()
+    x = (0.3 * np.sin(np.arange(16000) / 10)).astype(np.float32)
+    chunks, raw = smoke.wav_chunks(np, x, smoke.STREAM_CHUNK_MS)
+    assert b"".join(chunks) == raw and raw[:4] == b"RIFF" and len(raw) == 44 + 32000
+    step = 16 * smoke.STREAM_CHUNK_MS * 2
+    assert len(chunks[0]) == 44 + step + 1 and len(chunks[-1]) % 2 == 1
+    assert all(len(c) == step for c in chunks[1:-1])
+    buf = StreamBuffer()
+    for c in chunks:
+        buf.append(c)
+    np.testing.assert_array_equal(buf.read(), np.frombuffer(raw[44:], "<i2"))
+    assert smoke.pct([3.0, 1.0, 2.0, 4.0], 0.5) == 3.0 and smoke.pct([5.0], 0.9) == 5.0

@@ -2,13 +2,15 @@
 seeded tones, noise, silence and speech-like bursts: the per-frame
 probabilities (``frame_speech_probs``) allclose at 1e-6 (the same numpy),
 ``is_speech_detected`` equal at several thresholds and minimum durations,
-an installed model honoured by both, and ``load_silero`` refused until the
-Silero network is ported."""
+an installed model honoured by both, and ``load_silero`` installing a
+Silero VAD from a ggml file (``tests/test_torch_silero_vad.py`` holds it
+against the JAX package's)."""
 
 import numpy as np
 import pytest
 
 from sentiric_stt_whisper_service_tpu.runtime import vad as ref_vad
+from sentiric_stt_whisper_service_tpu_torch.models.silero_vad import SileroVad, write_silero_ggml
 from sentiric_stt_whisper_service_tpu_torch.runtime import vad
 
 
@@ -35,7 +37,7 @@ def test_vad_matches(name):
                 ref_vad.is_speech_detected(x, 16000, threshold, min_ms)
 
 
-def test_installed_model_and_silero():
+def test_installed_model_and_silero(tmp_path):
     x = clips()["bursts"]
 
     def model(audio):
@@ -51,5 +53,13 @@ def test_installed_model_and_silero():
     finally:
         vad.set_vad_model(None)
         ref_vad.set_vad_model(None)
-    with pytest.raises(NotImplementedError, match="silero_vad"):
-        vad.load_silero("ggml-silero-v6.2.0.bin")
+    # A real load: a random-init Silero written by the port, installed on the CPU.
+    path = tmp_path / "ggml-silero-v6.2.0.bin"
+    silero = SileroVad.random_init("cpu", seed=5)
+    write_silero_ggml(str(path), silero.params)
+    try:
+        assert vad.load_silero(str(path), device="cpu")
+        np.testing.assert_array_equal(vad.frame_speech_probs(x), silero(x))
+        assert vad._vad_frame_ms == 32.0
+    finally:
+        vad.set_vad_model(None)
