@@ -10,8 +10,8 @@ It uses only ``sentiric_stt_whisper_service_tpu_torch`` (never JAX or the
 JAX package) and fails with a non-zero exit on the first phase that fails:
 
 1. the card: ``nvidia-smi`` name and power limit; no CUDA device is a failure;
-   which of the four packages the servers import (``grpc``, ``aiohttp``,
-   ``google.protobuf``, ``prometheus_client``) load here (printed only);
+   the versions of the four packages the servers import (``grpc``,
+   ``aiohttp``, ``google.protobuf``, ``prometheus_client``);
 2. the build: every kernel of ``csrc/`` compiled from this checkout, one
    ``nvcc`` per source, all started together;
 3. kernel checks at the slices' shapes (4 windows of large-v3, 5 beams):
@@ -21,7 +21,12 @@ JAX package) and fails with a non-zero exit on the first phase that fails:
    cross-attention in its bf16, int8 and int4 forms; K5 and K6 again at
    beam 9, two groups of query beams; and at phase 7's shapes: K2 over an
    admission tick of 8 windows, K3 int8 and K4 over a pool of 8 slots, K5
-   and K6 at the gang's bucket of 8 items x 5 beams) against its plain
+   and K6 at the gang's bucket of 8 items x 5 beams; P1, the int8 attention
+   probe's kernel, in its qk8 and full8 modes at the probe's [16,20,1500,64]
+   on the probe's inputs, its int8 codes bit-equal to the plain version's,
+   full8 held to a bound per element (``ops/flash_q8.full8_tolerance``),
+   each mode's bound shown to reject a PV without its first key tile, with
+   SDPA timed beside it as a yardstick) against its plain
    PyTorch version on the same inputs, with the stated tolerance; each one's
    median time per call beside the plain version's, the time of one PyTorch
    call that computes the same function where there is one, and the bound:
@@ -83,7 +88,10 @@ JAX package) and fails with a non-zero exit on the first phase that fails:
    t1 < t0 can occur with random weights, in the JAX package too; such
    segments are counted, not refused.) Phase 6's engines run at
    ``parallel_requests=1``: one request at a time on the engine's own graph
-   classes;
+   classes. The 12 s clip on the beam engine, five times before and five
+   after ``serving.http_server.init_device_profiler`` (the process's first
+   trace with CUDA activities): what ``serve()``'s profiler set-up costs a
+   request;
 7. concurrency: the engine at ``parallel_requests=8``, ``max_batch_size=8``
    (otherwise phase 6's settings), eight requests started together from
    eight threads (phase 6's 5, 12, 21 and 30 s, 10 s at 8 kHz and 50 s
@@ -140,6 +148,32 @@ JAX package) and fails with a non-zero exit on the first phase that fails:
    1e-4 of the CPU's cell loop (TF32 off), its time per 30 s, the gate's
    decision on a voiced and a silent clip, and one ``transcribe_pcm16``
    through the gate.
+9. serving: ``serving.main.serve(settings, random_init=True, block=False)``
+   (large-v3 int4 from seed 0, VAD on, language auto, the gates relaxed,
+   ``parallel_requests`` = ``max_batch_size`` = 4, warm-up on, free local
+   ports) driven by real clients, its JSON log events captured (any error
+   event but the tenant gate's, and any HTTP 5xx, fails the phase): HTTP
+   ``/v1/transcribe`` and ``/v1/audio/transcriptions`` with a 12 s WAV
+   (text and segments equal to ``transcribe_pcm16`` of the same PCM on the
+   same engine), the tenant and file gates, ``/health`` and ``/metrics``;
+   the gRPC health ``Check`` and a unary call through ``cli.main._unary``
+   (equal to the same direct call); a 6 s stream through ``cli.main._stream``
+   at real time (0.5 s chunks every 0.5 s): partials never final, finals
+   only after EOS and equal to ``transcribe_pcm16`` of the whole buffer,
+   the first partial's latency and EOS -> last final; four requests at
+   once as gRPC unary calls (beam 5, the gang) and as HTTP requests with
+   ``beam_size`` 1 (the batcher's pool), beside phase 7's sets; a unary call
+   cancelled once its decode runs (its steps, from K5's launches, below the
+   224-step budget); ``/debug/profile?seconds=1`` during a request (the
+   trace names the port's kernels; the request's wall beside a direct
+   call's, and the server's logged wait, hold and export times of the
+   profiler's stop); then ``serving.main.shutdown``, after
+   which no non-daemon thread is left. Path ``serving`` launches K1–K6;
+   each front end's wall is printed beside a direct call's;
+10. the probe: ``tools/bench_flash_int8.main()`` (path ``probe_flash_int8``)
+   prints its three variants (K2, P1 qk8, P1 full8: ms, TFLOP/s, error
+   against fp32 attention); each must have launched its kernel and be no
+   worse than twice its plain version's error on the same inputs.
 
 ``--kernels-of DIR`` runs phases 1–3 only, with the package of the checkout
 in ``DIR``, and ends with the checks as one JSON list; ``--compare DIR`` runs
@@ -149,7 +183,8 @@ commit on one card.
 
 Each path (greedy int4, greedy int8, greedy bf16, beam 5, engine greedy,
 engine beam, concurrent greedy, concurrent greedy int8, concurrent beam,
-the concurrent pools' and gang's own, and phase 8's streams) has its own launch counts, set to 0 just before its (first) run and read just after it; each
+the concurrent pools' and gang's own, phase 8's streams, serving and the
+probe) has its own launch counts, set to 0 just before its (first) run and read just after it; each
 run must launch every kernel of its path. A graph replay adds the launches
 its capture counted. ``--profile`` runs phase 3, then replaces phases 4–5
 with a breakdown of both slices (the greedy one with the int4 and the int8
@@ -163,6 +198,7 @@ on the path its row times (and on every path), error, times and bound, then
 
 from __future__ import annotations
 
+import faulthandler
 import functools
 import io
 import itertools
@@ -187,6 +223,8 @@ BEAM = 5  # the JAX package's default beam_size
 BEAM_WIDE = 9  # above the 8 query beams a K5 or K6 cluster takes: two groups
 WARM_TOKENS = 4  # the capture run's tokens: the measured run's shape class, cut short
 BEAM_STEP_CHECK = 8  # beam steps held against a teacher-forced prefill
+WATCHDOG_S = 1140  # the run's limit, under the 1200 s it is given
+P1_SHAPE = (16, 20, 1500, 64)  # the int8 attention probe's default (BENCH_B/H/L/D)
 
 # The card's peaks (NVIDIA H100 SXM data sheet, dense, at 700 W): memory
 # bytes/s and operations/s by the type of a kernel's inputs.
@@ -214,17 +252,17 @@ SOURCES = {
     "beam_cross_attention": ("csrc/beam_cross_attention.cu",
                              "sentiric_stt_whisper_service_tpu/ops/beam_attention.py:333",
                              "beam5"),
+    "flash_q8": ("csrc/flash_q8.cu", "tools/bench_flash_int8.py:105", "probe_flash_int8"),
 }
 
 # The port's kernel functions (every __global__ of csrc/), matched by name in
 # the --profile breakdown.
 PROFILE_KERNELS = ("log_mel_kernel", "flash_attention_kernel", "decode_attention_kernel",
                    "decode_attention_i4_kernel", "beam_attention_kernel",
-                   "beam_cross_attention_kernel")
+                   "beam_cross_attention_kernel", "flash_q8_quant_kernel", "flash_q8_kernel")
 
 
-# The packages the JAX package's servers import (serving/): a serving phase
-# can run only where they load.
+# The packages the servers import (serving/): phase 9 runs only where they load.
 SERVING_PACKAGES = ("grpc", "aiohttp", "google.protobuf", "prometheus_client")
 
 
@@ -344,12 +382,17 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(n_bytes: float, n_ops: float, kind: str) -> tuple[float, str]:
+def bound(n_bytes: float, ops: dict) -> tuple[float, str]:
     """(least milliseconds the card could take, what bounds it): the bytes
-    over the memory rate or the operations over the peak for ``kind``."""
+    over the memory rate, or the operations {type: count} over each type's
+    peak, the types' times added."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_OPS_PER_S[kind] * 1e3
+    t_ops = sum(n / PEAK_OPS_PER_S[k] for k, n in ops.items()) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ops_text(ops: dict) -> str:
+    return " + ".join(f"{n / 1e9:.3f} G{k}" for k, n in ops.items()) + " ops"
 
 
 def check_kernels(torch, np) -> list[dict]:
@@ -377,9 +420,10 @@ def check_kernels(torch, np) -> list[dict]:
 
     def record(name, kernel_fn, plain_fn, tol, why, work, library_fn=None, library_note="",
                cold=None, alone=None, per_item=False, **meta):
-        """``tol`` is absolute, or a callable of max |plain| for outputs
-        stored in bf16 (whose rounding step scales with the value).
-        ``work`` is (bytes moved, operations, input type) for the bound;
+        """``tol`` is absolute, a callable of max |plain| for outputs
+        stored in bf16 (whose rounding step scales with the value), or a
+        tensor: a bound per element.
+        ``work`` is (bytes moved, {type: operations}) for the bound;
         ``library_fn`` one PyTorch call computing the same function. A
         ``library_note`` marks a yardstick on other inputs: its time is
         printed and kept out of the JSON line. ``ms``, ``plain_ms`` and
@@ -398,13 +442,20 @@ def check_kernels(torch, np) -> list[dict]:
                 f"{name}: kernel gives {tuple(got.shape)} {got.dtype}, plain "
                 f"{tuple(want.shape)} {want.dtype}")
         require(bool(torch.isfinite(got.float()).all()), f"{name}: kernel output not finite")
-        err = (got.float() - want.float()).abs().max().item()
+        diff = (got.float() - want.float()).abs()
+        err = diff.max().item()
         peak = want.float().abs().max().item()
         for i in range(got.shape[0]) if per_item else ():
             err_i = (got[i].float() - want[i].float()).abs().max().item()
             tol_i = tol(want[i].float().abs().max().item())
             require(err_i <= tol_i, f"{name}: item {i} max_abs_err {err_i:.3e} > tol {tol_i:.2e}")
-        tol = tol(peak) if callable(tol) else tol
+        if torch.is_tensor(tol):  # per element: the worst share of its bound
+            worst = (diff / tol).max().item()
+            ok, tol_text = worst <= 1.0, f"per element, worst |err| / tol {worst:.3f}"
+        else:
+            tol = tol(peak) if callable(tol) else tol
+            ok, tol_text = err <= tol, f"tol {tol:.2e}"
+        del diff
         ms, plain_ms, device_ms = time_ms(kernel_fn), time_ms(plain_fn), graph_ms(kernel_fn)
         cold_ms = cold_graph_ms(*cold) if cold is not None else None
         alone_ms = graph_ms(alone) if alone is not None else None
@@ -412,18 +463,17 @@ def check_kernels(torch, np) -> list[dict]:
         if library_fn is not None:
             library_ms, library_device_ms = time_ms(library_fn), graph_ms(library_fn)
         bound_ms, bound_by = bound(*work)
-        ok = err <= tol
         lib_txt = (f"{library_ms:.4f} ms (device {library_device_ms:.4f}){library_note}"
                    if library_fn is not None else "none")
-        print(f"  {name:<38} max_abs_err {err:.3e} (tol {tol:.2e}: {why}; max |plain| "
+        print(f"  {name:<38} max_abs_err {err:.3e} ({tol_text}: {why}; max |plain| "
               f"{peak:.3g})  kernel {ms:.4f} ms (device {device_ms:.4f}"
               f"{f', cold {cold_ms:.4f}' if cold is not None else ''}"
               f"{f', kernel alone {alone_ms:.4f}' if alone is not None else ''})"
               f"  plain {plain_ms:.4f} ms"
               f"  library {lib_txt}  bound {bound_ms:.4f} ms ({bound_by}: "
-              f"{work[0] / 1e6:.2f} MB, {work[1] / 1e9:.3f} G{work[2]} ops)  "
+              f"{work[0] / 1e6:.2f} MB, {ops_text(work[1])})  "
               f"{'OK' if ok else 'FAIL'}")
-        require(ok, f"{name}: max_abs_err {err:.3e} > tol {tol:.2e}")
+        require(ok, f"{name}: max_abs_err {err:.3e} beyond its bound ({tol_text})")
         mine = not library_note  # a yardstick on other inputs stays out of the JSON line
         rows.append(dict(check=name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                          library_ms=library_ms if mine else None, device_ms=device_ms,
@@ -448,7 +498,7 @@ def check_kernels(torch, np) -> list[dict]:
     record("K1 log_mel [4,480000]->[4,3000,128]",
            lambda: mel.clamp_and_scale(fused_mel.log_mel_power_fused(audio, 128)),
            lambda: mel.clamp_and_scale(mel.log_mel_power(audio, 128)),
-           3e-4, "fp32 sums in another order", (mel_bytes, mel_ops, "fp32"),
+           3e-4, "fp32 sums in another order", (mel_bytes, {"fp32": mel_ops}),
            alone=lambda: fused_mel.log_mel_power_fused(audio, 128), kernel="log_mel", main=True)
 
     # K2: the encoder's attention shape, bf16, q and k pre-scaled.
@@ -461,7 +511,7 @@ def check_kernels(torch, np) -> list[dict]:
            lambda: flash_attention(q, k, v), lambda: attention_reference(q, k, v),
            lambda peak: 2**-5 * peak,
            "4 bf16 steps at max |plain|: weights and output rounded to bf16",
-           (nbytes(q, k, v, q), 4 * B_ * H_ * L_ * L_ * D_, "bf16"),
+           (nbytes(q, k, v, q), {"bf16": 4 * B_ * H_ * L_ * L_ * D_}),
            library_fn=lambda: F_.scaled_dot_product_attention(q, k, v, scale=1.0),
            kernel="flash_attention", main=True)
     # ... and at an admission tick's N = 8 windows (phase 7's pools).
@@ -472,9 +522,62 @@ def check_kernels(torch, np) -> list[dict]:
            lambda: flash_attention(q8, k8_, v8_), lambda: attention_reference(q8, k8_, v8_),
            lambda peak: 2**-5 * peak,
            "4 bf16 steps at max |plain|: weights and output rounded to bf16",
-           (nbytes(q8, k8_, v8_, q8), 4 * CONCURRENT * H_ * L_ * L_ * D_, "bf16"),
+           (nbytes(q8, k8_, v8_, q8), {"bf16": 4 * CONCURRENT * H_ * L_ * L_ * D_}),
            library_fn=lambda: F_.scaled_dot_product_attention(q8, k8_, v8_, scale=1.0),
            kernel="flash_attention")
+
+    # P1: the int8 attention probe's kernel at the probe's shape, both modes,
+    # on the probe's own inputs. Operations: QKᵀ on the int8 tensor cores and
+    # PV in bf16 (qk8) or int8 (full8), 2·B·H·L²·d each; bytes: q, k, v read
+    # and the output written. No PyTorch call computes P1's function: SDPA
+    # (exact attention) is timed beside it as a yardstick.
+    import importlib.util
+
+    if importlib.util.find_spec(f"{PKG}.ops.flash_q8") is not None:  # absent in older trees
+        from sentiric_stt_whisper_service_tpu_torch.ops.flash_q8 import (
+            flash_q8,
+            flash_q8_plain,
+            full8_tolerance,
+        )
+        from sentiric_stt_whisper_service_tpu_torch.tools.bench_flash_int8 import make_inputs
+
+        qp, kp, vp = make_inputs(P1_SHAPE, dev)
+        B1, H1, L1, D1 = P1_SHAPE
+        product = 2 * B1 * H1 * L1 * L1 * D1
+        v_cut = vp.clone()
+        v_cut[:, :, :64] = 0  # a wrong kernel's PV: the first 64-key tile left out
+        for mode in ("qk8", "full8"):
+            got, codes = flash_q8(qp, kp, vp, mode, return_codes=True)
+            want, want_codes = flash_q8_plain(qp, kp, vp, mode, return_codes=True)
+            for cname, c in want_codes.items():
+                require(torch.equal(codes[cname], c), f"P1 {mode}: the kernel's {cname} codes "
+                        f"differ from the plain version's")
+            # qk8: two bf16 steps at max |plain|; full8: the bound per element
+            # from the arithmetic (ops/flash_q8.full8_tolerance).
+            tol_p1 = ((lambda peak: 2**-6 * peak) if mode == "qk8"
+                      else full8_tolerance(qp, kp, vp, want))
+            cut = (flash_q8_plain(qp, kp, v_cut, mode).float() - want.float()).abs()
+            missed = (cut / (tol_p1 if mode == "full8"
+                             else tol_p1(want.float().abs().max().item()))).max().item()
+            require(missed > 1.0, f"P1 {mode}: the bound passes a PV without a key tile")
+            print(f"  P1 {mode}: int8 codes {', '.join(want_codes)} equal the plain version's "
+                  f"bit for bit; the bound rejects a PV without its first 64-key tile (worst "
+                  f"|err| / tol {missed:.1f})")
+            del got, codes, want, want_codes, cut
+            record(f"P1 flash_q8 {mode} [16,20,1500,64]",
+                   functools.partial(flash_q8, qp, kp, vp, mode),
+                   functools.partial(flash_q8_plain, qp, kp, vp, mode), tol_p1,
+                   "2 bf16 steps at max |plain|: fp32 sums in another order, bf16 output"
+                   if mode == "qk8" else
+                   "2 bf16 steps at the element, plus 4 p8 codes a row off by one, each "
+                   "max |v_col| / 127 over the row's s",
+                   (nbytes(qp, kp, vp, qp),
+                    {"int8": product, "bf16": product} if mode == "qk8" else {"int8": 2 * product}),
+                   library_fn=lambda: F_.scaled_dot_product_attention(qp, kp, vp, scale=1.0),
+                   library_note=" (yardstick: SDPA, exact attention, not P1's function)",
+                   kernel="flash_q8", main=mode == "qk8", codes_equal=True)
+            del tol_p1
+        del qp, kp, vp, v_cut
 
     # K3 / K4: the decode step's cross read, [S=4, H=20, hd=64, F=1500].
     S, H, HD, F = N_REQUESTS, 20, 64, 1500
@@ -489,7 +592,7 @@ def check_kernels(torch, np) -> list[dict]:
     k3 = functools.partial(da.decode_attention, scale=scale)
     record("K3 decode_attention bf16", lambda: k3(q1, kb, vb),
            lambda: da.decode_attention_reference(q1, kb, vb, scale=scale),
-           tol, why, (nbytes(q1, kb, vb, q1), slab_ops, "bf16"),
+           tol, why, (nbytes(q1, kb, vb, q1), {"bf16": slab_ops}),
            library_fn=lambda: F_.scaled_dot_product_attention(
                q1[:, :, None], kb.transpose(-1, -2), vb.transpose(-1, -2), scale=scale),
            cold=(k3, (q1, kb, vb)), kernel="decode_attention")
@@ -500,7 +603,7 @@ def check_kernels(torch, np) -> list[dict]:
     record("K3 decode_attention bf16 causal",
            lambda: da.decode_attention(q1, kb, vb, pos=pos, scale=scale),
            lambda: da.decode_attention_reference(q1, kb, vb, pos=pos, scale=scale),
-           tol, why, (nbytes(q1, q1, pos) + live * H * HD * 2 * 2, 4 * H * HD * live, "bf16"),
+           tol, why, (nbytes(q1, q1, pos) + live * H * HD * 2 * 2, {"bf16": 4 * H * HD * live}),
            library_fn=lambda: F_.scaled_dot_product_attention(
                q1[:, :, None], kb.transpose(-1, -2), vb.transpose(-1, -2), attn_mask=pos_mask,
                scale=scale),
@@ -511,7 +614,7 @@ def check_kernels(torch, np) -> list[dict]:
     v8, v8s = quantize_weight(vs, axis=-2)
     record("K3 decode_attention int8", lambda: k3(q1, k8, v8, k8s, v8s),
            lambda: da.decode_attention_reference(q1, k8, v8, k8s, v8s, scale=scale),
-           tol, why, (nbytes(q1, k8, v8, k8s, v8s, q1), slab_ops, "int8"),
+           tol, why, (nbytes(q1, k8, v8, k8s, v8s, q1), {"int8": slab_ops}),
            cold=(k3, (q1, k8, v8, k8s, v8s)), kernel="decode_attention", main=True)
     k4, k4s = _quantize_kv(ks, 4)
     v4, v4s = _quantize_kv(vs, 4)
@@ -519,7 +622,7 @@ def check_kernels(torch, np) -> list[dict]:
     record("K4 decode_attention_i4", lambda: k4_call(q1, k4, v4, k4s, v4s),
            lambda: da.decode_attention_reference(
                q1, unpack_nibbles_i8(k4), unpack_nibbles_i8(v4), k4s, v4s, scale=scale),
-           tol, why, (nbytes(q1, k4, v4, k4s, v4s, q1), slab_ops, "int8"),
+           tol, why, (nbytes(q1, k4, v4, k4s, v4s, q1), {"int8": slab_ops}),
            cold=(k4_call, (q1, k4, v4, k4s, v4s)), kernel="decode_attention_i4", main=True)
     # ... and at the pool's S = 8 slots (phase 7): K4 over the int4 pool,
     # K3 over the int8 one.
@@ -531,14 +634,14 @@ def check_kernels(torch, np) -> list[dict]:
     v8_8, v8s_8 = quantize_weight(vs_8, axis=-2)
     record(f"K3 decode_attention int8 S={S8}", lambda: k3(q1_8, k8_8, v8_8, k8s_8, v8s_8),
            lambda: da.decode_attention_reference(q1_8, k8_8, v8_8, k8s_8, v8s_8, scale=scale),
-           tol, why, (nbytes(q1_8, k8_8, v8_8, k8s_8, v8s_8, q1_8), slab_ops * S8 // S, "int8"),
+           tol, why, (nbytes(q1_8, k8_8, v8_8, k8s_8, v8s_8, q1_8), {"int8": slab_ops * S8 // S}),
            cold=(k3, (q1_8, k8_8, v8_8, k8s_8, v8s_8)), kernel="decode_attention")
     k4_8, k4s_8 = _quantize_kv(ks_8, 4)
     v4_8, v4s_8 = _quantize_kv(vs_8, 4)
     record(f"K4 decode_attention_i4 S={S8}", lambda: k4_call(q1_8, k4_8, v4_8, k4s_8, v4s_8),
            lambda: da.decode_attention_reference(
                q1_8, unpack_nibbles_i8(k4_8), unpack_nibbles_i8(v4_8), k4s_8, v4s_8, scale=scale),
-           tol, why, (nbytes(q1_8, k4_8, v4_8, k4s_8, v4s_8, q1_8), slab_ops * S8 // S, "int8"),
+           tol, why, (nbytes(q1_8, k4_8, v4_8, k4s_8, v4s_8, q1_8), {"int8": slab_ops * S8 // S}),
            cold=(k4_call, (q1_8, k4_8, v4_8, k4s_8, v4s_8)), kernel="decode_attention_i4")
 
     # K5: the beam step's self read at the beam slice's shapes: 4 items x 5
@@ -586,7 +689,7 @@ def check_kernels(torch, np) -> list[dict]:
             record(f"K5 beam_attention {form} c_valid={c_valid}",
                    functools.partial(k5, *tensors), plain, tol, why,
                    (nbytes(qb, qb, read) + rows_read * HD * itemsize * 2 + scale_bytes,
-                    4 * HD * entries, form),
+                    {form: 4 * HD * entries}),
                    library_fn=(lambda kf=kf, vf=vf, mask=mask: F_.scaled_dot_product_attention(
                        qf, kf, vf, attn_mask=mask, scale=scale)) if form == "bf16" else None,
                    library_note=" (SDPA on a pre-folded copy, fold not timed)",
@@ -605,18 +708,18 @@ def check_kernels(torch, np) -> list[dict]:
     k6_i4 = functools.partial(ba.beam_cross_attention_i4, scale=scale)
     record("K6 beam_cross_attention bf16", lambda: k6(q6, kb, vb),
            lambda: ba.beam_cross_attention_reference(q6, kb, vb, scale=scale),
-           tol6, why6, (nbytes(q6, kb, vb, q6), cross_ops, "bf16"),
+           tol6, why6, (nbytes(q6, kb, vb, q6), {"bf16": cross_ops}),
            library_fn=lambda: F_.scaled_dot_product_attention(
                q6, kb.transpose(-1, -2), vb.transpose(-1, -2), scale=scale),
            cold=(k6, (q6, kb, vb)), kernel="beam_cross_attention")
     record("K6 beam_cross_attention int8", lambda: k6(q6, k8, v8, k8s, v8s),
            lambda: ba.beam_cross_attention_reference(q6, k8, v8, k8s, v8s, scale=scale),
-           tol6, why6, (nbytes(q6, k8, v8, k8s, v8s, q6), cross_ops, "int8"),
+           tol6, why6, (nbytes(q6, k8, v8, k8s, v8s, q6), {"int8": cross_ops}),
            cold=(k6, (q6, k8, v8, k8s, v8s)), kernel="beam_cross_attention")
     record("K6 beam_cross_attention int4", lambda: k6_i4(q6, k4, v4, k4s, v4s),
            lambda: ba.beam_cross_attention_reference(
                q6, unpack_nibbles_i8(k4), unpack_nibbles_i8(v4), k4s, v4s, scale=scale),
-           tol6, why6, (nbytes(q6, k4, v4, k4s, v4s, q6), cross_ops, "int8"),
+           tol6, why6, (nbytes(q6, k4, v4, k4s, v4s, q6), {"int8": cross_ops}),
            cold=(k6_i4, (q6, k4, v4, k4s, v4s)), kernel="beam_cross_attention", main=True)
 
     # K5 and K6 at the gang's largest bucket (phase 7): B = 8 items x 5
@@ -638,13 +741,13 @@ def check_kernels(torch, np) -> list[dict]:
                functools.partial(k5_g, qg, kg, vg, ancg),
                functools.partial(ba.beam_attention_reference, qg, kg, vg, ancg, K, scale,
                                  c_valid),
-               tol, why, (nbytes(qg, qg, read) + rows_read * HD * 2 * 2, 4 * HD * entries, "bf16"),
+               tol, why, (nbytes(qg, qg, read) + rows_read * HD * 2 * 2, {"bf16": 4 * HD * entries}),
                cold=(k5_g, (qg, kg, vg, ancg)), kernel="beam_attention")
     q6_8 = torch.randn((B8, H, K, HD), generator=g, device=dev).bfloat16()
     record(f"K6 beam_cross_attention int4 B={B8}", lambda: k6_i4(q6_8, k4_8, v4_8, k4s_8, v4s_8),
            lambda: ba.beam_cross_attention_reference(
                q6_8, unpack_nibbles_i8(k4_8), unpack_nibbles_i8(v4_8), k4s_8, v4s_8, scale=scale),
-           tol6, why6, (nbytes(q6_8, k4_8, v4_8, k4s_8, v4s_8, q6_8), cross_ops * B8 // S, "int8"),
+           tol6, why6, (nbytes(q6_8, k4_8, v4_8, k4s_8, v4s_8, q6_8), {"int8": cross_ops * B8 // S}),
            cold=(k6_i4, (q6_8, k4_8, v4_8, k4s_8, v4s_8)), kernel="beam_cross_attention")
 
     # K5 and K6 at beam 9: two groups of query beams per (item, head), each
@@ -665,13 +768,13 @@ def check_kernels(torch, np) -> list[dict]:
     record(f"K5 beam_attention bf16 beam {K9} c_valid={c_valid}",
            lambda: k5_9(q9, k9, v9, anc9),
            lambda: ba.beam_attention_reference(q9, k9, v9, anc9, K9, scale, c_valid),
-           tol, why, (nbytes(q9, q9, read) + rows_read * HD * 2 * 2, 4 * HD * entries, "bf16"),
+           tol, why, (nbytes(q9, q9, read) + rows_read * HD * 2 * 2, {"bf16": 4 * HD * entries}),
            cold=(k5_9, (q9, k9, v9, anc9)), kernel="beam_attention")
     q6_9 = torch.randn((S, H, K9, HD), generator=g, device=dev).bfloat16()
     record(f"K6 beam_cross_attention int4 beam {K9}", lambda: k6_i4(q6_9, k4, v4, k4s, v4s),
            lambda: ba.beam_cross_attention_reference(
                q6_9, unpack_nibbles_i8(k4), unpack_nibbles_i8(v4), k4s, v4s, scale=scale),
-           tol6, why6, (nbytes(q6_9, k4, v4, k4s, v4s, q6_9), 4 * S * H * K9 * HD * F, "int8"),
+           tol6, why6, (nbytes(q6_9, k4, v4, k4s, v4s, q6_9), {"int8": 4 * S * H * K9 * HD * F}),
            cold=(k6_i4, (q6_9, k4, v4, k4s, v4s)), kernel="beam_cross_attention")
     return rows
 
@@ -686,6 +789,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false: no CUDA device", file=sys.stderr)
         return 1
+    # A run that hangs prints every thread's stack and exits non-zero; lines
+    # go out as they are printed, so none is lost when it does.
+    sys.stdout.reconfigure(line_buffering=True)
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     args = sys.argv[1:]
     if "--compare" in args:
         return compare(Path(args[args.index("--compare") + 1]).resolve())
@@ -1021,6 +1128,14 @@ def run(torch, np, profile: bool = False, kernels_only: bool = False) -> int:
           f"VAD [{card}]")
     streaming_phase(torch, np, model, paths, card)
 
+    print(f"== 9. serving: serve() of large-v3 int4 (random init), parallel_requests "
+          f"{SERVE_PARALLEL}; HTTP, gRPC and the CLI [{card}]")
+    serving_phase(torch, np, paths, card, sequential)
+
+    print(f"== 10. the int8 attention probe (tools/bench_flash_int8.py) at "
+          f"{list(P1_SHAPE)} [{card}]")
+    probe_phase(torch, paths, card)
+
     kernels_json = []
     for name, (src, replaces, path) in SOURCES.items():
         mine = [c for c in checks if c["kernel"] == name]
@@ -1220,6 +1335,34 @@ def engine_phase(torch, np, model, paths, card) -> None:
                          params=model)
     run_set("engine_beam", eng_beam, BEAM)
 
+    # What serve()'s profiler set-up (``init_device_profiler``: an empty
+    # trace with CUDA activities) costs a request: the 12 s clip on the beam
+    # engine, five times before the process's first such trace, five after.
+    from sentiric_stt_whisper_service_tpu_torch.serving.http_server import init_device_profiler
+
+    label, pcm, rate, _ = requests[DURATIONS_S.index(12.0)]
+
+    def walls():
+        out = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            eng_beam.transcribe_pcm16(pcm, rate, RequestOptions(beam_size=BEAM))
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t)
+        return out
+
+    before = walls()
+    t = time.perf_counter()
+    init_device_profiler()
+    t_init = time.perf_counter() - t
+    after = walls()
+    print(f"  [engine_beam] {label}, walls without the profiler set up "
+          f"{', '.join(f'{w:.3f}' for w in before)} s; init_device_profiler {t_init:.3f} s; "
+          f"walls after it {', '.join(f'{w:.3f}' for w in after)} s; after - before: mean "
+          f"{1e3 * (np.mean(after) - np.mean(before)):.1f} ms, median "
+          f"{1e3 * (np.median(after) - np.median(before)):.1f} ms [{card}]")
+
     # The default gates: random weights fail the logprob gate, so the
     # ladder climbs from beam 5 at t = 0 to best-of 5 sampling above it.
     eng_default = SttEngine(base, model_name="large-v3", params=model)
@@ -1393,6 +1536,7 @@ def concurrency_phase(torch, np, model, paths, card, requests, sequential) -> No
     wall, walls, metrics = run_concurrent("concurrent_greedy", eng, 1)
     paths["concurrent_greedy"] = dict(kernels.LAUNCHES)
     report_set("concurrent_greedy", "engine_greedy", wall, walls, metrics, -1)
+    sequential["concurrent_greedy"] = (audio_s, wall, {})  # phase 9 prints it beside its own
     need("concurrent_greedy", ("log_mel", "flash_attention", "decode_attention",
                                "decode_attention_i4"))
     owned("concurrent_greedy_pool", [pool._loop], ("decode_attention",), ("decode_attention_i4",))
@@ -1546,6 +1690,7 @@ def concurrency_phase(torch, np, model, paths, card, requests, sequential) -> No
     wallb, wallsb, metricsb = run_concurrent("concurrent_beam", engb, BEAM)
     paths["concurrent_beam"] = dict(kernels.LAUNCHES)
     report_set("concurrent_beam", "engine_beam", wallb, wallsb, metricsb, -1)
+    sequential["concurrent_beam"] = (audio_s, wallb, {})
     need("concurrent_beam", ("log_mel", "flash_attention", "beam_attention",
                              "beam_cross_attention"))
     owned("concurrent_beam_gang", list(gang.graphs._loops.values()),
@@ -1884,6 +2029,387 @@ def streaming_phase(torch, np, model, paths, card) -> None:
           f"{base.vad_threshold}: voiced {decisions[0]}, silent {decisions[1]}; one "
           f"transcribe_pcm16 through the gate: {len(res)} result(s), language "
           f"{res[0].language!r}")
+
+
+SERVE_PARALLEL = 4  # phase 9: parallel_requests and max_batch_size
+SERVE_CLIP_S = 12.0  # phase 9: the HTTP and unary requests' clip
+SERVE_SET_S = (5.0, 12.0, 21.0, 30.0)  # phase 9: the four requests sent at once
+SERVE_CANCEL_S = 30.0  # phase 9: the cancelled request's clip
+SIX = ("log_mel", "flash_attention", "decode_attention", "decode_attention_i4",
+       "beam_attention", "beam_cross_attention")
+
+
+def serving_phase(torch, np, paths, card, sets) -> None:
+    """Phase 9: the service on the card through its front ends (see the
+    module docstring)."""
+    import contextlib
+    import importlib
+    import logging
+    import os
+    import socket
+    import threading
+    import urllib.error
+    import urllib.request
+
+    import grpc
+
+    from sentiric_stt_whisper_service_tpu_torch import kernels
+    from sentiric_stt_whisper_service_tpu_torch.audio import parse_wav_robust, write_wav
+    from sentiric_stt_whisper_service_tpu_torch.config import Settings
+    from sentiric_stt_whisper_service_tpu_torch.runtime import RequestOptions, streaming
+    from sentiric_stt_whisper_service_tpu_torch.serving import main as serving_main
+    from sentiric_stt_whisper_service_tpu_torch.serving.http_server import segments_json
+
+    cli = importlib.import_module(f"{PKG}.cli.main")
+
+    def free_port() -> int:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            return sock.getsockname()[1]
+
+    def wav_of(x) -> bytes:
+        buf = io.BytesIO()
+        write_wav(buf, x)
+        return buf.getvalue()
+
+    relaxed = dict(quality_gate="off", logprob_threshold=-1e9, no_speech_threshold=1.0,
+                   min_segment_avg_prob=0.0)
+    settings = Settings(device="auto", compute_type="int4", enable_vad=True, language="auto",
+                        model_filename="ggml-large-v3.bin", parallel_requests=SERVE_PARALLEL,
+                        max_batch_size=SERVE_PARALLEL, request_queue_timeout_ms=600_000,
+                        host="127.0.0.1", grpc_port=free_port(), http_port=free_port(),
+                        metrics_port=free_port(), **relaxed)
+    require(settings.beam_size == BEAM, "the default beam size moved")
+    os.environ["STT_WHISPER_SERVICE_WARMUP"] = "true"
+    torch.cuda.reset_peak_memory_stats()
+    threads_before = {t for t in threading.enumerate() if not t.daemon}
+    t = time.perf_counter()
+    engine, server, apps, _ = serving_main.serve(settings, random_init=True, block=False)
+    print(f"  [serving] serve(): random init (seed 0), quantize, warmup() and three listeners "
+          f"in {time.perf_counter() - t:.1f} s; {len(engine.graphs.stats())} graph classes "
+          f"[{card}]")
+
+    events = []  # the service's log events from here on: (event, level, message)
+
+    class Capture(logging.Handler):
+        def emit(self, record):
+            events.append((getattr(record, "event", "LOG_EVENT"), record.levelname,
+                           record.getMessage()))
+
+    logging.getLogger().handlers = [Capture()]
+    try:
+        statuses = []  # every HTTP reply's status
+        http = f"http://127.0.0.1:{settings.http_port}"
+        addr = f"127.0.0.1:{settings.grpc_port}"
+
+        def post(path, fields, tenant="smoke"):
+            """A multipart POST: (status, JSON, wall s)."""
+            boundary = "sstw-smoke-boundary"
+            body = b""
+            for name, value in fields:
+                fname = '; filename="a.wav"' if isinstance(value, bytes) else ""
+                data = value if isinstance(value, bytes) else str(value).encode()
+                body += (f'--{boundary}\r\nContent-Disposition: form-data; name="{name}"{fname}'
+                         f"\r\n\r\n").encode() + data + b"\r\n"
+            body += f"--{boundary}--\r\n".encode()
+            headers = {"Content-Type": f"multipart/form-data; boundary={boundary}"}
+            if tenant:
+                headers["X-Tenant-ID"] = tenant
+            req = urllib.request.Request(http + path, data=body, headers=headers, method="POST")
+            t0 = time.perf_counter()
+            try:
+                with urllib.request.urlopen(req, timeout=600) as r:
+                    status, reply = r.status, json.loads(r.read())
+            except urllib.error.HTTPError as e:
+                status, reply = e.code, json.loads(e.read())
+            statuses.append(status)
+            return status, reply, time.perf_counter() - t0
+
+        def get(url):
+            with urllib.request.urlopen(url, timeout=60) as r:
+                statuses.append(r.status)
+                return r.status, r.read().decode()
+
+        def direct(pcm, **opts):
+            """``transcribe_pcm16`` on the same engine with the servers' options
+            (an abort poll that never fires): (results, wall s). Its launches are
+            kept out of the path's counts."""
+            snap = dict(kernels.LAUNCHES)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = engine.transcribe_pcm16(pcm, 16000, RequestOptions(should_abort=lambda: False,
+                                                                     **opts))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            kernels.LAUNCHES.update(snap)
+            return res, wall
+
+        def quiet(fn, *args):
+            """A CLI call with its printout counted, not shown (main thread only)."""
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                result = fn(*args)
+            return result, len(out.getvalue().splitlines())
+
+        def words(res):
+            return [(k.text, k.t0 / 100.0, k.t1 / 100.0) for k in res.tokens]
+
+        rng = np.random.default_rng(SEED + 9)
+        wav12 = wav_of(voiced_like(rng, SERVE_CLIP_S))
+        pcm12 = parse_wav_robust(wav12).pcm_data
+        want12, direct_wall = direct(pcm12)
+        require(bool(want12), "serving: the direct request kept no segment")
+        kernels.reset_launch_counts()
+
+        # -- 1. HTTP -------------------------------------------------------------
+        for route in ("/v1/transcribe", "/v1/audio/transcriptions"):
+            status, reply, wall = post(route, [("file", wav12)])
+            require(status == 200, f"serving: {route} replied {status}: {reply}")
+            require(reply["text"] == "".join(r.text for r in want12)
+                    and reply["language"] == want12[-1].language
+                    and reply["segments"] == json.loads(json.dumps(segments_json(want12)))
+                    and reply["duration"] == SERVE_CLIP_S,
+                    f"serving: {route}'s reply differs from transcribe_pcm16 of the same PCM")
+            print(f"  [serving] HTTP {route}: {len(reply['segments'])} segment(s) equal to a direct "
+                  f"transcribe_pcm16; wall {wall:.3f} s against the direct call's "
+                  f"{direct_wall:.3f} s (server cost {1e3 * (wall - direct_wall):.1f} ms) [{card}]")
+        status, reply, _ = post("/v1/transcribe", [("file", wav12)], tenant=None)
+        require(status == 400 and "tenant_id" in reply["error"], f"serving: no tenant gave {status}")
+        status, _, _ = post("/v1/transcribe", [("language", "en")])
+        require(status == 400, f"serving: no file gave {status}")
+        status, body = get(http + "/health")
+        require(status == 200 and json.loads(body)["model_ready"] is True, "serving: /health not ready")
+        _, body = get(f"http://127.0.0.1:{settings.metrics_port}/metrics")
+        require("stt_requests_total 4.0" in body
+                and f"stt_audio_seconds_processed_total {2 * SERVE_CLIP_S}" in body,
+                "serving: /metrics does not count the four requests and 24 audio-s")
+        print("  [serving] HTTP: no tenant 400, no file 400, /health ready, /metrics counts 4 "
+              "requests and 24.0 audio-s")
+
+        # -- 2. gRPC unary and health ------------------------------------------
+        with grpc.insecure_channel(addr) as ch:
+            check = ch.unary_unary("/grpc.health.v1.Health/Check")
+            require(check(b"", timeout=60) == bytes([0x08, 1]), "serving: health Check not SERVING")
+            t0 = time.perf_counter()
+            resp, lines = quiet(cli._unary, ch, wav12)
+            wall = time.perf_counter() - t0
+        r0 = want12[0]
+        require(resp.transcription == r0.text and resp.language == r0.language
+                and resp.speaker_id == r0.speaker_id and resp.duration == SERVE_CLIP_S
+                and [(w.word, w.start, w.end) for w in resp.words] == words(r0),
+                "serving: the unary reply differs from transcribe_pcm16 of the same PCM")
+        print(f"  [serving] gRPC health SERVING; cli._unary: reply equal to the direct call's first "
+              f"segment ({len(resp.words)} words, {lines} lines printed); wall {wall:.3f} s against "
+              f"{direct_wall:.3f} s (server cost {1e3 * (wall - direct_wall):.1f} ms) [{card}]")
+
+        # -- 3. gRPC stream at real time ---------------------------------------
+        wav6 = wav_of(voiced_like(rng, STREAM_SECONDS))
+        finalizing = []  # (buffer, pinned language) of each finalize
+        finalize = streaming.StreamingSession.finalize
+
+        def recording_finalize(self):
+            finalizing.append((self.buffer.read().copy(), self._detected_lang))
+            return finalize(self)
+
+        streaming.StreamingSession.finalize = recording_finalize
+        try:
+            with grpc.insecure_channel(addr) as ch:
+                (sent, received), _ = quiet(cli._stream, ch, wav6)
+        finally:
+            streaming.StreamingSession.finalize = finalize
+        require(len(finalizing) == 1, f"serving: {len(finalizing)} finalizes in one stream")
+        partials = [(t0, r) for t0, r in received if not r.is_final]
+        finals = [(t0, r) for t0, r in received if r.is_final]
+        require(finals and all(t0 >= sent[-1] for t0, _ in finals),
+                "serving: a final came before EOS, or none came")
+        require(all(t0 < finals[0][0] for t0, _ in partials), "serving: a partial after a final")
+        pcm_s, lang = finalizing[0]
+        want_s, _ = direct(pcm_s, language=lang)
+        want_s = [r for r in want_s if r.text]
+        require([(r.transcription, [(w.word, w.start, w.end) for w in r.words]) for _, r in finals]
+                == [(r.text, words(r)) for r in want_s],
+                "serving: the stream's finals differ from transcribe_pcm16 of the whole buffer")
+        first = (f"{1e3 * (partials[0][0] - sent[0]):.1f} ms after the chunk that crossed 500 ms "
+                 f"(chunk 0, sent at t = 0)" if partials else "none (the VAD gated every tick)")
+        print(f"  [serving] cli._stream: {STREAM_SECONDS:.0f} s in {len(sent) - 1} chunks of "
+              f"{cli.CHUNK_S} s at real time (sent over {sent[-1] - sent[0]:.2f} s), language auto "
+              f"(pinned {lang!r}): {len(partials)} partials, none final; first partial {first}; "
+              f"{len(finals)} final(s) after EOS, equal to transcribe_pcm16 of the "
+              f"{len(pcm_s) / 16000:.2f} s buffer; EOS -> last final "
+              f"{received[-1][0] - sent[-1]:.3f} s [{card}]")
+        print(f"  [serving] stream timeline, s after chunk 0: EOS sent {sent[-1] - sent[0]:.2f}; "
+              f"replies " + ", ".join(f"{t0 - sent[0]:.2f}{'F' if r.is_final else 'p'}"
+                                      for t0, r in received))
+
+        # -- 4. four requests at once: gRPC unary (beam 5: the gang), then HTTP
+        # with beam_size 1 (greedy: the batcher's pool) ---------------------------
+        set_wavs = [wav_of(voiced_like(rng, sec)) for sec in SERVE_SET_S]
+        set_audio = sum(SERVE_SET_S)
+
+        def at_once(call):
+            results, errors = [None] * len(set_wavs), []
+            start = threading.Barrier(len(set_wavs) + 1)
+
+            def go(i):
+                try:
+                    start.wait(timeout=120)
+                    results[i] = call(set_wavs[i])
+                except Exception as e:  # noqa: BLE001 — reported below
+                    errors.append(f"{SERVE_SET_S[i]:.0f} s: {type(e).__name__}: {e}")
+
+            threads = [threading.Thread(target=go, args=(i,)) for i in range(len(set_wavs))]
+            for th in threads:
+                th.start()
+            start.wait(timeout=120)
+            t0 = time.perf_counter()
+            for th in threads:
+                th.join(timeout=600)
+            wall = time.perf_counter() - t0
+            require(not any(th.is_alive() for th in threads) and not errors,
+                    f"serving: requests at once failed: {errors}")
+            return results, wall
+
+        def unary_call(wav):
+            """``cli._unary``'s call without its printout (``quiet`` redirects the
+            process's stdout, which threads must not do)."""
+            with grpc.insecure_channel(addr) as ch:
+                return cli._transcribe_call(ch)(cli.stt_pb2.WhisperTranscribeRequest(
+                    audio_data=wav), metadata=cli._METADATA, timeout=600)
+
+        replies, wall_g = at_once(unary_call)
+        require(all(r.words and r.duration > 0 for r in replies), "serving: a unary reply is empty")
+        replies_h, wall_h = at_once(lambda wav: post("/v1/transcribe", [("file", wav),
+                                                                        ("beam_size", "1")]))
+        require(all(st == 200 and rep["segments"] for st, rep, _ in replies_h),
+                "serving: an HTTP reply of the set failed or is empty")
+        p7 = {k: f"{a / w:.2f} audio-s/s ({w:.3f} s for {a:.1f} audio-s)"
+              for k, (a, w, _) in sets.items() if k.startswith("concurrent")}
+        print(f"  [serving] four requests at once ({', '.join(f'{x:.0f}' for x in SERVE_SET_S)} s): "
+              f"gRPC unary, beam {BEAM} (the gang) {wall_g:.3f} s, {set_audio / wall_g:.2f} "
+              f"audio-s/s; HTTP beam_size 1 (the batcher) {wall_h:.3f} s, "
+              f"{set_audio / wall_h:.2f} audio-s/s; phase 7 (eight at once, engine direct): "
+              f"greedy {p7.get('concurrent_greedy')}, beam {p7.get('concurrent_beam')} [{card}]")
+
+        # -- 5. a cancelled unary call: the decode stops on the device ------------
+        layers = engine.cfg.n_text_layer
+        done, seen = threading.Event(), {}
+        transcribe = engine.transcribe_pcm16
+
+        def spy(*a, **kw):
+            try:
+                seen["results"] = transcribe(*a, **kw)
+            finally:
+                done.set()
+            return seen["results"]
+
+        engine.transcribe_pcm16 = spy
+        k5_before = kernels.LAUNCHES["beam_attention"]
+        try:
+            with grpc.insecure_channel(addr) as ch:
+                fut = cli._transcribe_call(ch).future(cli.stt_pb2.WhisperTranscribeRequest(
+                    audio_data=wav_of(voiced_like(rng, SERVE_CANCEL_S))), metadata=cli._METADATA)
+                deadline = time.perf_counter() + 120
+                while (kernels.LAUNCHES["beam_attention"] == k5_before
+                       and time.perf_counter() < deadline and not fut.done()):
+                    time.sleep(0.002)
+                t_cancel = time.perf_counter()
+                fut.cancel()
+                require(done.wait(120), "serving: the cancelled request never returned")
+                t_back = time.perf_counter()
+        finally:
+            del engine.transcribe_pcm16
+        steps = (kernels.LAUNCHES["beam_attention"] - k5_before) / layers
+        budget = 224  # engine.SAMPLE_LEN: a window's sampled-token budget
+        require(0 < steps < budget, f"serving: the cancelled decode ran {steps:.0f} of {budget} steps")
+        print(f"  [serving] a cancelled unary call (30 s clip, beam {BEAM}): the decode stopped after "
+              f"{steps:.0f} of {budget} steps ({kernels.LAUNCHES['beam_attention'] - k5_before} K5 "
+              f"launches / {layers} layers), {1e3 * (t_back - t_cancel):.1f} ms after the cancel; "
+              f"{len(seen.get('results') or [])} result(s) [{card}]")
+
+        # -- 6. /debug/profile while a request runs ------------------------------
+        # The profile starts first (it waits for no device work then), and a
+        # request starts inside its second; its stop waits for the request's
+        # decode in flight, so the trace holds that decode.
+        captured = len(engine.graphs.stats())
+        profiled, inside = [], []
+        profiler = threading.Thread(target=lambda: profiled.append(
+            post("/debug/profile?seconds=1", [])))
+        worker = threading.Thread(target=lambda: inside.append(
+            post("/v1/transcribe", [("file", wav12)])))
+        profiler.start()
+        time.sleep(0.3)
+        worker.start()
+        profiler.join(timeout=600)
+        worker.join(timeout=600)
+        require(bool(profiled), "serving: /debug/profile never replied")
+        status, reply, prof_wall = profiled[0]
+        require(status == 200, f"serving: /debug/profile replied {status}")
+        trace = Path(reply["trace_dir"]) / "trace.json"
+        text = trace.read_text()
+        named = [k for k in PROFILE_KERNELS if k in text]
+        require(bool(named), "serving: the profile's trace names none of the port's kernels")
+        require(bool(inside) and inside[0][0] == 200, "serving: the request inside the profile failed")
+        written = [m for e, _, m in events if e == "PROFILE_WRITTEN"]
+        require(len(written) == 1, f"serving: {len(written)} PROFILE_WRITTEN events")
+        print(f"  [serving] /debug/profile?seconds=1 with a request started inside it: replied in "
+              f"{prof_wall:.2f} s, a {trace.stat().st_size / 1e6:.1f} MB Chrome trace naming "
+              f"{named}; graph classes captured meanwhile: "
+              f"{len(engine.graphs.stats()) - captured} [{card}]")
+        print(f"  [serving] the request inside the profile: wall {inside[0][2]:.3f} s against the "
+              f"direct call's {direct_wall:.3f} s (the profile's cost to it "
+              f"{inside[0][2] - direct_wall:.3f} s); the server: {written[0]} [{card}]")
+
+        paths["serving"] = dict(kernels.LAUNCHES)
+        need_launched(paths, "serving", SIX)
+        # Errors other than the tenant gate's own (one request sent without a
+        # tenant on purpose): the stream servicer logs a failed tick and goes on.
+        bad = [e[:2] for e in events
+               if e[1] in ("ERROR", "CRITICAL") and e[0] != "MISSING_TENANT_ID"]
+        require(not bad and all(st < 500 for st in statuses),
+                f"serving: error events {bad[:5]} or 5xx replies {[st for st in statuses if st >= 500]}")
+        counts = {}
+        for name, _, _ in events:
+            counts[name] = counts.get(name, 0) + 1
+        print(f"  [serving] log events {counts}; HTTP statuses {sorted(set(statuses))}; launches "
+              f"{paths['serving']}; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    finally:  # the service stops whatever failed, so the run can exit
+        # -- 7. shutdown -----------------------------------------------------
+        t0 = time.perf_counter()
+        serving_main.shutdown(engine, server, apps)
+    left = {t for t in threading.enumerate() if not t.daemon} - threads_before
+    require(not left, f"serving: threads left after shutdown: {[t.name for t in left]}")
+    require(not any(app.thread.is_alive() for app in apps), "serving: a listener's loop runs on")
+    print(f"  [serving] shutdown in {time.perf_counter() - t0:.2f} s: no thread left")
+
+
+def probe_phase(torch, paths, card) -> None:
+    """Phase 10: the int8 attention probe (see the module docstring)."""
+    from sentiric_stt_whisper_service_tpu_torch import kernels
+    from sentiric_stt_whisper_service_tpu_torch.ops.flash_attention import attention_reference
+    from sentiric_stt_whisper_service_tpu_torch.ops.flash_q8 import flash_q8_plain
+    from sentiric_stt_whisper_service_tpu_torch.tools import bench_flash_int8 as probe
+
+    require(probe.shape_from_env() == P1_SHAPE, "the probe's shape is not its default")
+    kernels.reset_launch_counts()
+    rows = probe.main()
+    paths["probe_flash_int8"] = dict(kernels.LAUNCHES)
+    require([r["variant"] for r in rows] == list(probe.VARIANTS), "probe: variants missing")
+    q, k, v = probe.make_inputs(P1_SHAPE, "cuda")
+    ref = probe.fp32_reference(q, k, v)
+    for r in rows:
+        kernel = "flash_attention" if r["variant"] == "base" else "flash_q8"
+        require(r["launches"].get(kernel, 0) >= 1, f"probe {r['variant']}: {kernel} not launched")
+        plain = (attention_reference(q, k, v) if r["variant"] == "base"
+                 else flash_q8_plain(q, k, v, r["variant"]))
+        p_rms, p_max = probe.rel_errors(plain, ref)
+        require(r["rel_rms_err"] <= 2 * p_rms and r["rel_max_err"] <= 2 * p_max,
+                f"probe {r['variant']}: error {r['rel_rms_err']:.4g} / {r['rel_max_err']:.4g} x "
+                f"std against its plain version's {p_rms:.4g} / {p_max:.4g}")
+        print(f"  [probe_flash_int8] {r['variant']}: {r['ms']:.4f} ms, {r['tflops']:.1f} TFLOP/s; "
+              f"error against fp32 attention RMS {r['rel_rms_err']:.5f}, max "
+              f"{r['rel_max_err']:.5f} x std (plain version: {p_rms:.5f}, {p_max:.5f}) [{card}]")
+    print(f"  [probe_flash_int8] launches {paths['probe_flash_int8']}")
 
 
 def need_launched(paths, path, names, absent=()) -> None:

@@ -14,7 +14,10 @@ The kernels, each with the TPU kernel of the JAX package it replaces:
     blocks per (item, head) splitting the positions):
     ``ops/beam_attention.py:214``;
   * K6 ``beam_cross_attention`` (``csrc/beam_cross_attention.cu``, a cluster
-    of four blocks per (item, head) splitting d): ``ops/beam_attention.py:333``.
+    of four blocks per (item, head) splitting d): ``ops/beam_attention.py:333``;
+  * P1 ``flash_q8`` (``csrc/flash_q8.cu``, a quantizing pre-pass per (batch,
+    head), then two passes of int8 tensor-core QKᵀ per query tile): the JAX
+    package's probe ``tools/bench_flash_int8.py:105``.
 
 K3, K5 and K6 share the constants and slab forms of
 ``csrc/slab_attention.cuh``; K3, K4 and K5 the split-softmax pieces of
@@ -59,6 +62,7 @@ LAUNCHES = {
     "decode_attention_i4": 0,  # K4, ops/decode_attention.py
     "beam_attention": 0,  # K5, ops/beam_attention.py (bf16 and int8 forms)
     "beam_cross_attention": 0,  # K6, ops/beam_attention.py (bf16, int8 and int4 forms)
+    "flash_q8": 0,  # P1, ops/flash_q8.py (qk8 and full8 modes)
 }
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -73,6 +77,7 @@ _SIGNATURES = {
     "sstw_beam_cross_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "sstw_beam_cross_attention_i8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "sstw_beam_cross_attention_i4": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "sstw_flash_q8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

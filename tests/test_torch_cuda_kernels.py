@@ -311,3 +311,40 @@ def test_silero_sequence_lstm(dev, seconds):
         probs = sv.silero_frame_probs(params, audio)
         plain = sv.silero_frame_probs({k: v.cpu() for k, v in params.items()}, audio.cpu())
     assert (probs.cpu() - plain).abs().max().item() <= 1e-4
+
+
+# P1 at the encoder's length (ragged against the 64-key tiles and 64-row
+# query tiles), at a short ragged length and at one key, and at B * H = 320
+# with 1500 keys: 7,680 blocks of 64 rows, several waves.
+@pytest.mark.parametrize("mode", ["qk8", "full8"])
+@pytest.mark.parametrize("B,H,L", [(2, 20, 1500), (1, 3, 100), (2, 2, 1), (16, 20, 1500)])
+def test_flash_q8(dev, mode, B, H, L):
+    """The int8 codes bit for bit (the same IEEE divisions and rint); the
+    output, in qk8, within two bf16 steps at max |plain| (fp32 sums in
+    another order, then bf16), and in full8 within ``full8_tolerance`` per
+    element: two bf16 steps at the element and a few p8 codes per row that
+    an exp one ulp off flips, each worth max|v_col| / 127 over the row's s."""
+    from sentiric_stt_whisper_service_tpu_torch.ops.flash_q8 import (
+        flash_q8,
+        flash_q8_plain,
+        full8_tolerance,
+    )
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(L)
+    q, k = ((torch.randn(B, H, L, 64, generator=g, device=dev) * 64**-0.25).bfloat16()
+            for _ in range(2))
+    v = torch.randn(B, H, L, 64, generator=g, device=dev).bfloat16()
+    before = kernels.LAUNCHES["flash_q8"]
+    got, codes = flash_q8(q, k, v, mode, return_codes=True)
+    assert kernels.LAUNCHES["flash_q8"] == before + 1
+    want, want_codes = flash_q8_plain(q, k, v, mode, return_codes=True)
+    assert codes.keys() == want_codes.keys()
+    for name, c in want_codes.items():
+        assert torch.equal(codes[name], c), name
+    assert got.dtype == want.dtype == torch.bfloat16 and got.shape == want.shape
+    err = (got.float() - want.float()).abs()
+    if mode == "qk8":
+        assert err.max().item() <= 2 * 2**-7 * want.float().abs().max().item()
+    else:
+        assert bool((err <= full8_tolerance(q, k, v, want)).all())

@@ -44,6 +44,19 @@ MODULES = [
     "sentiric_stt_whisper_service_tpu_torch.runtime.streaming",
     "sentiric_stt_whisper_service_tpu_torch.runtime.vad",
     "sentiric_stt_whisper_service_tpu_torch.text",
+    "sentiric_stt_whisper_service_tpu_torch.ops.flash_q8",
+    "sentiric_stt_whisper_service_tpu_torch.tools",
+    "sentiric_stt_whisper_service_tpu_torch.tools.bench_flash_int8",
+    "sentiric_stt_whisper_service_tpu_torch.serving",
+    "sentiric_stt_whisper_service_tpu_torch.serving.grpc_server",
+    "sentiric_stt_whisper_service_tpu_torch.serving.health",
+    "sentiric_stt_whisper_service_tpu_torch.serving.http_server",
+    "sentiric_stt_whisper_service_tpu_torch.serving.main",
+    "sentiric_stt_whisper_service_tpu_torch.serving.metrics",
+    "sentiric_stt_whisper_service_tpu_torch.serving.proto.stt_pb2",
+    "sentiric_stt_whisper_service_tpu_torch.serving.suts_logging",
+    "sentiric_stt_whisper_service_tpu_torch.cli",
+    "sentiric_stt_whisper_service_tpu_torch.cli.main",
 ]
 
 
@@ -148,4 +161,4 @@ def test_library_name_follows_the_sources():
     assert path == kernels.library_path()  # deterministic
     assert {p.name for p in kernels.CSRC.glob("*.cu")} == {
         "mel.cu", "flash_attention.cu", "decode_attention.cu", "decode_attention_i4.cu",
-        "beam_attention.cu", "beam_cross_attention.cu"}
+        "beam_attention.cu", "beam_cross_attention.cu", "flash_q8.cu"}
