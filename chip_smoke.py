@@ -204,6 +204,7 @@ import io
 import itertools
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -231,6 +232,10 @@ P1_SHAPE = (16, 20, 1500, 64)  # the int8 attention probe's default (BENCH_B/H/L
 HBM_BYTES_PER_S = 3.35e12
 L2_BYTES = 50e6
 PEAK_OPS_PER_S = {"fp32": 67e12, "bf16": 989e12, "int8": 1979e12}
+# Exponentials a second on the special-function units: 16 a clock on each of
+# the 132 SMs, about 3.9e12 (FlashAttention-3, Shah et al. 2024, section 3;
+# the CUDA C++ Programming Guide's throughput table, compute capability 9.0).
+EXP_PER_S = 3.9e12
 
 # The TPU kernel each CUDA kernel replaces, its source in the port, and the
 # path whose run gives its JSON row's launch count: the path that runs the
@@ -382,13 +387,16 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(n_bytes: float, ops: dict) -> tuple[float, str]:
-    """(least milliseconds the card could take, what bounds it): the bytes
-    over the memory rate, or the operations {type: count} over each type's
-    peak, the types' times added."""
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = sum(n / PEAK_OPS_PER_S[k] for k, n in ops.items()) * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def bound(n_bytes: float, ops: dict, exps: float = 0) -> tuple[float, str]:
+    """(least milliseconds the card could take, what bounds it): the largest
+    of the bytes over the memory rate ("bytes"), the operations {type: count}
+    over each type's peak, the types' times added ("operations"), and the
+    exponentials over the special-function units' rate ("exp")."""
+    terms = {"bytes": n_bytes / HBM_BYTES_PER_S * 1e3,
+             "operations": sum(n / PEAK_OPS_PER_S[k] for k, n in ops.items()) * 1e3,
+             "exp": exps / EXP_PER_S * 1e3}
+    by = max(terms, key=terms.get)
+    return terms[by], by
 
 
 def ops_text(ops: dict) -> str:
@@ -423,7 +431,8 @@ def check_kernels(torch, np) -> list[dict]:
         """``tol`` is absolute, a callable of max |plain| for outputs
         stored in bf16 (whose rounding step scales with the value), or a
         tensor: a bound per element.
-        ``work`` is (bytes moved, {type: operations}) for the bound;
+        ``work`` is (bytes moved, {type: operations}[, exponentials]) for
+        the bound;
         ``library_fn`` one PyTorch call computing the same function. A
         ``library_note`` marks a yardstick on other inputs: its time is
         printed and kept out of the JSON line. ``ms``, ``plain_ms`` and
@@ -511,7 +520,7 @@ def check_kernels(torch, np) -> list[dict]:
            lambda: flash_attention(q, k, v), lambda: attention_reference(q, k, v),
            lambda peak: 2**-5 * peak,
            "4 bf16 steps at max |plain|: weights and output rounded to bf16",
-           (nbytes(q, k, v, q), {"bf16": 4 * B_ * H_ * L_ * L_ * D_}),
+           (nbytes(q, k, v, q), {"bf16": 4 * B_ * H_ * L_ * L_ * D_}, B_ * H_ * L_ * L_),
            library_fn=lambda: F_.scaled_dot_product_attention(q, k, v, scale=1.0),
            kernel="flash_attention", main=True)
     # ... and at an admission tick's N = 8 windows (phase 7's pools).
@@ -522,18 +531,22 @@ def check_kernels(torch, np) -> list[dict]:
            lambda: flash_attention(q8, k8_, v8_), lambda: attention_reference(q8, k8_, v8_),
            lambda peak: 2**-5 * peak,
            "4 bf16 steps at max |plain|: weights and output rounded to bf16",
-           (nbytes(q8, k8_, v8_, q8), {"bf16": 4 * CONCURRENT * H_ * L_ * L_ * D_}),
+           (nbytes(q8, k8_, v8_, q8), {"bf16": 4 * CONCURRENT * H_ * L_ * L_ * D_},
+            CONCURRENT * H_ * L_ * L_),
            library_fn=lambda: F_.scaled_dot_product_attention(q8, k8_, v8_, scale=1.0),
            kernel="flash_attention")
 
     # P1: the int8 attention probe's kernel at the probe's shape, both modes,
     # on the probe's own inputs. Operations: QKᵀ on the int8 tensor cores and
-    # PV in bf16 (qk8) or int8 (full8), 2·B·H·L²·d each; bytes: q, k, v read
-    # and the output written. No PyTorch call computes P1's function: SDPA
-    # (exact attention) is timed beside it as a yardstick.
+    # PV in bf16 (qk8) or int8 (full8), 2·B·H·L²·d each; one exponential a
+    # score; bytes: q, k, v read and the output written. No PyTorch call
+    # computes P1's function: SDPA (exact attention) is timed beside it as a
+    # yardstick. Beside each mode: its pre-pass and its attention kernel
+    # alone, and K2 on the same inputs.
     import importlib.util
 
     if importlib.util.find_spec(f"{PKG}.ops.flash_q8") is not None:  # absent in older trees
+        from sentiric_stt_whisper_service_tpu_torch.ops import flash_q8 as fq
         from sentiric_stt_whisper_service_tpu_torch.ops.flash_q8 import (
             flash_q8,
             flash_q8_plain,
@@ -564,6 +577,23 @@ def check_kernels(torch, np) -> list[dict]:
                   f"bit for bit; the bound rejects a PV without its first 64-key tile (worst "
                   f"|err| / tol {missed:.1f})")
             del got, codes, want, want_codes, cut
+            split = {}
+            if hasattr(fq, "launch"):  # one kernel alone (trees before the split have none)
+                full8 = mode == "full8"
+                out_p1 = torch.empty_like(qp)
+                scratch = fq.prepass_buffers(B1 * H1, L1, full8, qp.device)
+                fq.launch(qp, kp, vp, out_p1, scratch, None, full8, fq.PREPASS)
+                split = {
+                    "prepass_device_ms": graph_ms(functools.partial(
+                        fq.launch, qp, kp, vp, out_p1, scratch, None, full8, fq.PREPASS)),
+                    "attention_device_ms": graph_ms(functools.partial(
+                        fq.launch, qp, kp, vp, out_p1, scratch, None, full8, fq.ATTENTION)),
+                }
+                del out_p1, scratch
+            split["k2_device_ms"] = graph_ms(functools.partial(flash_attention, qp, kp, vp))
+            print(f"  P1 {mode}: device ms "
+                  + ", ".join(f"{k.removesuffix('_device_ms')} {v:.4f}" for k, v in split.items())
+                  + " (the pre-pass and the attention kernel alone; K2 on the same inputs)")
             record(f"P1 flash_q8 {mode} [16,20,1500,64]",
                    functools.partial(flash_q8, qp, kp, vp, mode),
                    functools.partial(flash_q8_plain, qp, kp, vp, mode), tol_p1,
@@ -572,10 +602,11 @@ def check_kernels(torch, np) -> list[dict]:
                    "2 bf16 steps at the element, plus 4 p8 codes a row off by one, each "
                    "max |v_col| / 127 over the row's s",
                    (nbytes(qp, kp, vp, qp),
-                    {"int8": product, "bf16": product} if mode == "qk8" else {"int8": 2 * product}),
+                    {"int8": product, "bf16": product} if mode == "qk8" else {"int8": 2 * product},
+                    B1 * H1 * L1 * L1),
                    library_fn=lambda: F_.scaled_dot_product_attention(qp, kp, vp, scale=1.0),
                    library_note=" (yardstick: SDPA, exact attention, not P1's function)",
-                   kernel="flash_q8", main=mode == "qk8", codes_equal=True)
+                   kernel="flash_q8", main=mode == "qk8", codes_equal=True, **split)
             del tol_p1
         del qp, kp, vp, v_cut
 
@@ -1146,9 +1177,13 @@ def run(torch, np, profile: bool = False, kernels_only: bool = False) -> int:
             "launches_by_path": {p: counts[name] for p, counts in paths.items()},
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            # The exponentials' unit is operations too; bound_term names it.
+            "bound_by": "bytes" if row["bound_by"] == "bytes" else "operations",
+            "bound_term": row["bound_by"], "library_ms": row["library_ms"],
             "device_ms": row["device_ms"], "library_device_ms": row["library_device_ms"],
             "cold_device_ms": row["cold_device_ms"],
+            **{k: row[k] for k in ("prepass_device_ms", "attention_device_ms", "k2_device_ms")
+               if k in row},
         })
     print(f"  smoke wall {time.perf_counter() - t_start:.1f} s, the build included [{card}]")
     print(card)
@@ -2358,6 +2393,15 @@ def serving_phase(torch, np, paths, card, sets) -> None:
         print(f"  [serving] the request inside the profile: wall {inside[0][2]:.3f} s against the "
               f"direct call's {direct_wall:.3f} s (the profile's cost to it "
               f"{inside[0][2] - direct_wall:.3f} s); the server: {written[0]} [{card}]")
+        # The profile's hold (the stop, under the device lock) and the
+        # request's loss, against their targets: a 1 s trace holds the device
+        # at most 2 s, the request loses at most 5 s.
+        held = re.search(r"stopped in ([0-9.]+) s", written[0])
+        hold_s = float(held.group(1)) if held else float("nan")
+        loss_s = inside[0][2] - direct_wall
+        print(f"  [serving] /debug/profile: hold {hold_s:.3f} s (target <= 2 s), the request's loss "
+              f"{loss_s:.3f} s (target <= 5 s): "
+              f"{'met' if hold_s <= 2.0 and loss_s <= 5.0 else 'missed'} [{card}]")
 
         paths["serving"] = dict(kernels.LAUNCHES)
         need_launched(paths, "serving", SIX)

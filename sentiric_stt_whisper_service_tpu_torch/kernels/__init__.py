@@ -15,8 +15,9 @@ The kernels, each with the TPU kernel of the JAX package it replaces:
     ``ops/beam_attention.py:214``;
   * K6 ``beam_cross_attention`` (``csrc/beam_cross_attention.cu``, a cluster
     of four blocks per (item, head) splitting d): ``ops/beam_attention.py:333``;
-  * P1 ``flash_q8`` (``csrc/flash_q8.cu``, a quantizing pre-pass per (batch,
-    head), then two passes of int8 tensor-core QKᵀ per query tile): the JAX
+  * P1 ``flash_q8`` (``csrc/flash_q8.cu``, a quantizing pre-pass, a cluster
+    of eight blocks per (batch, head), then two passes of int8 ``wgmma``
+    QKᵀ per 128-row query tile fed by a ``cp.async`` ring): the JAX
     package's probe ``tools/bench_flash_int8.py:105``.
 
 K3, K5 and K6 share the constants and slab forms of
@@ -77,7 +78,7 @@ _SIGNATURES = {
     "sstw_beam_cross_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "sstw_beam_cross_attention_i8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "sstw_beam_cross_attention_i4": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
-    "sstw_flash_q8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "sstw_flash_q8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

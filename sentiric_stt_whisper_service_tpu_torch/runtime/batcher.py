@@ -48,7 +48,8 @@ The worker thread installs each admitted request's future in its slot
 before any device work, so an admission failure rejects (never orphans)
 it, and polls each live request's ``should_abort`` once per chunk. Greedy
 decoding only: the temperature-fallback ladder and beam search stay on the
-engine's own path. ``mesh`` and ``quantize_kv`` are refused.
+engine's own path. ``quantize_kv=True`` with no ``kv_bits`` means
+``kv_bits=8``, as in the JAX package; ``mesh`` is refused.
 """
 
 from __future__ import annotations
@@ -137,10 +138,8 @@ class ContinuousBatcher:
             raise NotImplementedError(
                 "ContinuousBatcher(mesh=...): sharding over a device mesh is not ported yet "
                 "(ROADMAP queue 1 item 15)")
-        if quantize_kv:
-            raise NotImplementedError(
-                "ContinuousBatcher(quantize_kv=True): pass kv_bits=8 (or 4) instead")
-        kv_bits = kv_bits or 0
+        if kv_bits is None:
+            kv_bits = 8 if quantize_kv else 0
         if kv_bits not in _XA_NAMES:
             raise ValueError(f"kv_bits must be 0, 4 or 8, got {kv_bits}")
         self.cfg, self.params, self.ids = cfg, params, ids
@@ -150,6 +149,7 @@ class ContinuousBatcher:
         self.cache_len = cache_len
         self.steps_per_sync = steps_per_sync
         self.kv_bits = kv_bits
+        self.quantize_kv = kv_bits > 0
         self.self_dtype = self_dtype
         self.xa_ctx = xa_ctx or cfg.n_audio_ctx
         if kv_bits == 4 and self.xa_ctx % 2:

@@ -128,10 +128,9 @@ class HttpServer:
 
     async def profile(self, request: web.Request):
         """Trace the next ``seconds`` (at most 30) with ``torch.profiler``:
-        CPU activities, and CUDA ones when the engine runs on the card (CUPTI
-        records the device kernels of every thread; the CPU ops only of the
-        thread that runs the trace). Replies with the directory of the Chrome
-        trace."""
+        the card's kernels of every thread (CUPTI) when the engine runs on
+        the card, CPU activities on the CPU. Replies with the directory of
+        the Chrome trace."""
         import tempfile
 
         try:
@@ -147,17 +146,19 @@ class HttpServer:
         """One executor thread starts the profiler, sleeps, stops it (the
         profiler's state belongs to the thread that started it) and writes
         the trace. It starts and stops with no thread launching on the card:
-        stopping it beside a graph replay in another thread deadlocks both.
-        The engine's device lock, held exclusively, waits for the device work
-        in flight (a decode window at most) and holds new work back while the
-        profiler stops; the export runs after it is released. The times of
-        the wait, the hold and the export are logged (PROFILE_WRITTEN)."""
+        stopping it beside a graph replay in another thread deadlocks both
+        (with or without kineto's CUPTI teardown). The engine's device lock,
+        held exclusively, waits for the device work in flight (a decode
+        window at most) and holds new work back while the profiler stops,
+        which takes about 50 us per kernel recorded (and holds the GIL); the
+        export runs after it is released. On the card only CUDA activities
+        are taken: the CPU ones would record this thread's sleep alone. The
+        times of the wait, the stop and the export are logged
+        (PROFILE_WRITTEN)."""
         from torch.profiler import ProfilerActivity, profile
 
-        activities = [ProfilerActivity.CPU]
-        if self.engine.device.type == "cuda":
-            activities.append(ProfilerActivity.CUDA)
-        prof = profile(activities=activities)
+        cuda = self.engine.device.type == "cuda"
+        prof = profile(activities=[ProfilerActivity.CUDA if cuda else ProfilerActivity.CPU])
         with self.engine._device.exclusive():
             prof.start()
         try:
@@ -171,8 +172,8 @@ class HttpServer:
         prof.export_chrome_trace(path)
         suts_info(
             "PROFILE_WRITTEN", "", "", "",
-            "Trace of %.1f s written to %s: waited %.3f s for the device, held it "
-            "%.3f s to stop the profiler, exported in %.3f s",
+            "Trace of %.1f s written to %s: waited %.3f s for the device, stopped in %.3f s "
+            "holding it, exported in %.3f s",
             seconds, path, t1 - t0, t2 - t1, time.perf_counter() - t2,
         )
 

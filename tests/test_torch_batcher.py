@@ -14,8 +14,9 @@ admission tick, a cropped audio_ctx pool, a decode past the first read
 bound, the int4 and int8 pools fed encoded slabs against the JAX package's
 (both int8 containers), a raw window in an int4 pool (encoded at 8 bits,
 token-exact with the JAX int4 pool, its int8 cross K/V handed back) and an
-int4 carrier unpacked at admission (as the solo int4 decode), abort
-mid-decode and a failing admission. ``decoder_step`` with
+int4 carrier unpacked at admission (as the solo int4 decode), a
+``quantize_kv=True`` pool (the int8 pool, as the JAX package reads it),
+abort mid-decode and a failing admission. ``decoder_step`` with
 per-row positions is held against the JAX package's vector-``pos`` step.
 """
 
@@ -250,6 +251,35 @@ def test_quantized_pool(stack, bits):
         assert_same(got, solo, "solo")
 
 
+def test_quantize_kv_pool(stack):
+    """``quantize_kv=True`` with no ``kv_bits`` builds the int8 pool, as the
+    JAX package reads it (``kv_bits=8``): a raw window decodes token-exact
+    with the JAX pool built the same way, and equals the port's
+    ``kv_bits=8`` pool, whose container it shares."""
+    window = make_window(22)
+    mine, theirs = stack.pool(max_slots=2, quantize_kv=True), \
+        stack.ref_pool(max_slots=2, quantize_kv=True)
+    eight = stack.pool(max_slots=2, kv_bits=8)
+    try:
+        ((got, want),) = both((mine, theirs), [(window, stack.sot, 0, 12)])
+        got8 = eight.submit(window, stack.sot, 0, max_tokens=12).result(timeout=TIMEOUT)
+    finally:
+        for pool in (mine, theirs, eight):
+            pool.shutdown()
+    assert (mine.kv_bits, mine.quantize_kv) == (8, True)
+    assert (theirs.kv_bits, theirs.quantize_kv) == (8, True)
+    assert {n: (t.dtype, t.shape) for n, t in mine.state.xa_kv.items()} == \
+        {n: (t.dtype, t.shape) for n, t in eight.state.xa_kv.items()}
+    assert mine.state.xa_kv["k_q"].dtype == torch.int8
+    assert_same(got, want, "jax quantize_kv pool")
+    np.testing.assert_array_equal(got["tokens"], got8["tokens"])
+    np.testing.assert_array_equal(got["token_logprobs"], got8["token_logprobs"])
+    for name in ("sum_logprob", "avg_logprob", "no_speech_prob"):
+        assert got[name] == got8[name], name
+    for name, t in got8["xa_kv"].items():
+        torch.testing.assert_close(got["xa_kv"][name], t, rtol=0, atol=0)
+
+
 def test_int4_pool_raw_windows(stack):
     """A kv_bits=4 pool is an int8 container, as the JAX package's: a raw
     window is encoded at 8 bits, decodes token-exact with the JAX kv_bits=4
@@ -343,7 +373,6 @@ def test_failing_admission_rejects_futures(stack):
 
 def test_refused_arguments(stack):
     for kw, exc in ((dict(mesh=object()), NotImplementedError),
-                    (dict(quantize_kv=True), NotImplementedError),
                     (dict(kv_bits=4, xa_ctx=101), ValueError)):
         with pytest.raises(exc):
             stack.pool(**kw)

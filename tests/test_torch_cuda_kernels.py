@@ -313,11 +313,16 @@ def test_silero_sequence_lstm(dev, seconds):
     assert (probs.cpu() - plain).abs().max().item() <= 1e-4
 
 
-# P1 at the encoder's length (ragged against the 64-key tiles and 64-row
-# query tiles), at a short ragged length and at one key, and at B * H = 320
-# with 1500 keys: 7,680 blocks of 64 rows, several waves.
+# P1 at the encoder's length (ragged against the 64-key tiles and 128-row
+# query tiles), at one key, at lengths that straddle a key tile (64, 65), a
+# query tile (127, 128, 129) and the ring (100 keys: two tiles, fewer than
+# its four stages), at B * H = 139 (not a multiple of the 132 SMs, nor of the
+# pre-pass's eight-block clusters' count per SM) and at B * H = 320 with 1500
+# keys: 3,840 blocks of 128 rows, several waves.
 @pytest.mark.parametrize("mode", ["qk8", "full8"])
-@pytest.mark.parametrize("B,H,L", [(2, 20, 1500), (1, 3, 100), (2, 2, 1), (16, 20, 1500)])
+@pytest.mark.parametrize("B,H,L", [(2, 20, 1500), (1, 3, 100), (2, 2, 1), (1, 2, 64), (1, 2, 65),
+                                   (1, 3, 127), (1, 3, 128), (2, 1, 129), (1, 139, 200),
+                                   (16, 20, 1500)])
 def test_flash_q8(dev, mode, B, H, L):
     """The int8 codes bit for bit (the same IEEE divisions and rint); the
     output, in qk8, within two bf16 steps at max |plain| (fp32 sums in

@@ -9,7 +9,10 @@ codes (each by 1), and a flipped q code moves a row's scores; full8
 amplifies that through the p8 = round(e * 127) codes. For scale, the JAX
 kernel's own error against fp32 attention is 0.06-0.37 x std at these
 shapes. The k codes are equal. The card tests hold the kernel to the plain
-version (``tests/test_torch_cuda_kernels.py``).
+version (``tests/test_torch_cuda_kernels.py``). Also here: the v8 tile
+layout the kernel's pre-pass writes (``tile_v8`` / ``untile_v8``), and the
+arithmetic identities the kernel rests on (the integer row max, its int32 ->
+fp32 step and p8's rint by a float add), on random inputs.
 """
 
 import importlib.util
@@ -20,6 +23,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 from jax.experimental.pallas import tpu as pltpu
 
 from sentiric_stt_whisper_service_tpu.ops.flash_attention import (
@@ -27,9 +32,13 @@ from sentiric_stt_whisper_service_tpu.ops.flash_attention import (
 )
 from sentiric_stt_whisper_service_tpu_torch import kernels
 from sentiric_stt_whisper_service_tpu_torch.ops.flash_q8 import (
+    KEY_TILE,
+    V8_ORDER,
     flash_q8,
     flash_q8_plain,
     full8_tolerance,
+    tile_v8,
+    untile_v8,
 )
 from sentiric_stt_whisper_service_tpu_torch.tools import bench_flash_int8
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
@@ -152,3 +161,60 @@ def test_probe_refuses_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         bench_flash_int8.main()
+
+
+@pytest.mark.parametrize("bh,L", [(1, 1), (2, 64), (3, 65), (2, 100), (1, 1500)])
+def test_v8_tiles_round_trip(bh, L):
+    """``tile_v8`` lays v8 codes out as the kernel's pre-pass writes them
+    (64-key tiles, channel-major, keys in ``V8_ORDER``, zeros past L);
+    ``untile_v8``, which turns the kernel's tiles back into codes for
+    ``return_codes``, is its inverse."""
+    rng = np.random.default_rng(L)
+    v8 = torch.from_numpy(rng.integers(-127, 128, size=(bh, L, 64), dtype=np.int8))
+    tiles = tile_v8(v8)
+    n = -(-L // KEY_TILE)
+    assert tiles.shape == (bh, n, 64, KEY_TILE) and tiles.dtype == torch.int8
+    assert torch.equal(untile_v8(tiles, L), v8)
+    for w in range(KEY_TILE):  # slot w of tile i holds key 64 i + V8_ORDER[w], all channels
+        key = V8_ORDER[w]
+        if key < L:
+            assert torch.equal(tiles[:, 0, :, w], v8[:, key])
+    assert not untile_v8(tiles, n * KEY_TILE)[:, L:].any()
+    # V8_ORDER is the order in which a lane of the PV product's A fragment
+    # takes its keys: k-index 4t + b of each group of 16 holds key
+    # 8 (b // 2) + 2t + b % 2.
+    assert sorted(V8_ORDER) == list(range(KEY_TILE))
+    for i, key in enumerate(V8_ORDER):
+        t, b = (i % 16) // 4, i % 4
+        assert key == 16 * (i // 16) + 8 * (b // 2) + 2 * t + b % 2
+
+
+_S32_MAX = 127 * 127 * 64  # the largest |q8 . k8| at d = 64
+
+
+@settings(max_examples=200, deadline=None)
+@given(st.lists(st.integers(-_S32_MAX, _S32_MAX), min_size=1, max_size=64),
+       st.floats(2.0**-40, 2.0**10, allow_nan=False, allow_infinity=False, width=32))
+def test_integer_row_max_equals_the_float_max(scores, mult):
+    """The kernel's pass 1 takes the row max on the int32 scores and scales
+    it once: fmul(float(max s32), mult) equals max(fmul(float(s32), mult))
+    bit for bit, since float(s32) is exact below 2^24 and a product with a
+    positive mult does not decrease as s32 grows. Its int32 -> fp32 step (an
+    integer add to 1.5 * 2^23, then a float subtract) equals the conversion
+    for |s32| < 2^22."""
+    s32 = np.asarray(scores, np.int32)
+    m = np.float32(mult)
+    per_element = (s32.astype(np.float32) * m).max()
+    assert (np.float32(s32.max()) * m).tobytes() == per_element.tobytes()
+    magic = (s32 + np.int32(0x4B400000)).view(np.float32) - np.float32(12582912.0)
+    assert magic.tobytes() == s32.astype(np.float32).tobytes()
+
+
+@settings(max_examples=200, deadline=None)
+@given(st.lists(st.floats(0.0, 1.0, allow_nan=False, width=32), min_size=1, max_size=64))
+def test_p8_by_a_float_add_equals_rint(e):
+    """full8's p8 = rint(e * 127): the kernel adds 1.5 * 2^23 to e * 127 and
+    takes the low byte, which rounds half to even as torch.round does."""
+    x = np.asarray(e, np.float32) * np.float32(127.0)
+    low = ((x + np.float32(12582912.0)).view(np.uint32) & 0xFF).astype(np.int64)
+    assert np.array_equal(low, torch.round(torch.from_numpy(x)).long().numpy())

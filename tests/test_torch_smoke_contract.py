@@ -70,3 +70,24 @@ def test_stream_chunks_carry_the_header_and_odd_counts():
         buf.append(c)
     np.testing.assert_array_equal(buf.read(), np.frombuffer(raw[44:], "<i2"))
     assert smoke.pct([3.0, 1.0, 2.0, 4.0], 0.5) == 3.0 and smoke.pct([5.0], 0.9) == 5.0
+
+
+def test_bound_counts_the_exponentials():
+    """``bound`` takes the largest of the bytes, the tensor-core operations
+    and the exponentials (3.9e12 a second): at P1's shape both modes are
+    bound by their 16 * 20 * 1500^2 exponentials at about 0.185 ms, above
+    their products (0.140 ms qk8, 0.093 ms full8) and bytes (0.073 ms); K2
+    at the encoder's [4, 20, 1500, 64] stays bound by its bf16 products,
+    0.0466 ms against 0.0462 ms of exponentials."""
+    import pytest
+
+    smoke = _smoke()
+    B, H, L, D = smoke.P1_SHAPE
+    product, n_bytes, exps = 2 * B * H * L * L * D, 4 * B * H * L * D * 2, B * H * L * L
+    for ops in ({"int8": product, "bf16": product}, {"int8": 2 * product}):
+        ms, by = smoke.bound(n_bytes, ops, exps)
+        assert by == "exp" and ms == pytest.approx(0.1846, abs=5e-4)
+        assert smoke.bound(n_bytes, ops)[1] != "exp"  # no exponentials counted: as before
+    b, n = 4, 4 * H * L * D * 2 * 4
+    ms, by = smoke.bound(n, {"bf16": 4 * b * H * L * L * D}, b * H * L * L)
+    assert by == "operations" and ms == pytest.approx(0.0466, abs=1e-4)
