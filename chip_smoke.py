@@ -13,7 +13,9 @@ JAX package) and fails with a non-zero exit on the first phase that fails:
    the versions of the four packages the servers import (``grpc``,
    ``aiohttp``, ``google.protobuf``, ``prometheus_client``);
 2. the build: every kernel of ``csrc/`` compiled from this checkout, one
-   ``nvcc`` per source, all started together;
+   ``nvcc`` per source, all started together; and the native WAV parser
+   (``native/sstw_native.cpp``, ``g++`` into the package's ``_build/``),
+   which must build;
 3. kernel checks at the slices' shapes (4 windows of large-v3, 5 beams):
    each kernel (K1 log-mel, K2 flash attention, K3 decode attention in its
    bf16, causal and int8 forms, K4 int4 decode attention, K5 beam
@@ -36,7 +38,9 @@ JAX package) and fails with a non-zero exit on the first phase that fails:
    CUDA graph, so the host's dispatch is left out) and, for the decode
    kernels K3–K6, the kernel's cold device time (the graph's calls rotate
    through copies of the inputs, so none is in L2 when read, as in the
-   decode, where each layer's slab comes from device memory);
+   decode, where each layer's slab comes from device memory); K6 also at
+   the form of speculative decoding's verify pass (B = 1, the gamma + 1 = 5
+   positions as its query rows, int4 slab: ``verify_form`` in its JSON row);
 4. the greedy slice: large-v3 at full width with random weights from a fixed
    seed, int8 weights + fused qkv, four synthetic 16 kHz WAV requests written
    and parsed by the port, then pad_or_trim → compute_log_mel →
@@ -65,7 +69,8 @@ JAX package) and fails with a non-zero exit on the first phase that fails:
    (int4 compute: int4 cross slab, fp8 self cache; ``device="auto"``; VAD,
    diarization, ``language="auto"`` and token timestamps on; the gates
    relaxed so that random weights keep their segments), the user's entry
-   point ``transcribe_pcm16`` on WAVs written and parsed by the port:
+   point ``transcribe_pcm16`` on WAVs written by the port and parsed by its
+   native parser (each parse counted; one that falls back fails the run):
    voiced synthetic clips of 5, 12, 21 and 30 s, an 8 kHz clip (the
    resample path), a 50 s clip through the sequential long-form loop and
    through the batched one, and a silent clip (the VAD gate); once with
@@ -173,7 +178,29 @@ JAX package) and fails with a non-zero exit on the first phase that fails:
 10. the probe: ``tools/bench_flash_int8.main()`` (path ``probe_flash_int8``)
    prints its three variants (K2, P1 qk8, P1 full8: ms, TFLOP/s, error
    against fp32 attention); each must have launched its kernel and be no
-   worse than twice its plain version's error on the same inputs.
+   worse than twice its plain version's error on the same inputs;
+11. speculative decoding (``models/speculative.py``): phase 4's large-v3
+   target and a random large-v3-turbo draft (4 decoder layers, d = 1280,
+   its own seed, int8 weights + fused qkv), both int4 slabs from one encode
+   of the target, fp8 self caches, gamma 4, 12 s and 30 s windows decoded
+   alone with a 128-token budget, three ways on the same cross K/V: (a)
+   ``decode_window_spec`` with the target as its own draft (the upper bound
+   of acceptance), (b) with the turbo draft (a random draft: the lower
+   bound), (c) the graphed ``decode_window`` at t = 0. Each prints its
+   wall (the encode included), tokens/s and, for (a) and (b), rounds,
+   tokens and accepted drafts a round, and each class's capture seconds and
+   static buffers. (a) and (b) must equal (c) token for token up to their
+   first divergence, where the verify pass's top-two margin must lie within
+   twice phase 4's step-vs-teacher-forced drift; the graphed rounds must
+   equal eager rounds in every field (32-token budget); on the 12 s window
+   (paths ``spec_self``, ``spec_turbo``) K1, K2, K4 (the draft's steps)
+   and K6 (the verify pass) launch, K3 and K5 do not, and each replayed
+   round launches K6 once a target layer and K4 gamma times a draft
+   layer. Then ``SttEngine`` with ``draft_model="large-v3-turbo"`` (phase
+   6's greedy settings, ``parallel_requests=1``, a random draft) after
+   ``warmup()`` on the 12 s request (path ``engine_spec``): its wall beside
+   phase 6's greedy engine's, and ``PerformanceMetrics.spec`` must count
+   rounds.
 
 ``--kernels-of DIR`` runs phases 1–3 only, with the package of the checkout
 in ``DIR``, and ends with the checks as one JSON list; ``--compare DIR`` runs
@@ -183,8 +210,8 @@ commit on one card.
 
 Each path (greedy int4, greedy int8, greedy bf16, beam 5, engine greedy,
 engine beam, concurrent greedy, concurrent greedy int8, concurrent beam,
-the concurrent pools' and gang's own, phase 8's streams, serving and the
-probe) has its own launch counts, set to 0 just before its (first) run and read just after it; each
+the concurrent pools' and gang's own, phase 8's streams, serving, the
+probe, and phase 11's greedy, speculative and engine runs) has its own launch counts, set to 0 just before its (first) run and read just after it; each
 run must launch every kernel of its path. A graph replay adds the launches
 its capture counted. ``--profile`` runs phase 3, then replaces phases 4–5
 with a breakdown of both slices (the greedy one with the int4 and the int8
@@ -210,6 +237,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 PKG = "sentiric_stt_whisper_service_tpu_torch"
@@ -224,6 +252,7 @@ BEAM = 5  # the JAX package's default beam_size
 BEAM_WIDE = 9  # above the 8 query beams a K5 or K6 cluster takes: two groups
 WARM_TOKENS = 4  # the capture run's tokens: the measured run's shape class, cut short
 BEAM_STEP_CHECK = 8  # beam steps held against a teacher-forced prefill
+SPEC_GAMMA = 4  # phase 11: draft tokens per speculative round
 WATCHDOG_S = 1140  # the run's limit, under the 1200 s it is given
 P1_SHAPE = (16, 20, 1500, 64)  # the int8 attention probe's default (BENCH_B/H/L/D)
 
@@ -753,6 +782,19 @@ def check_kernels(torch, np) -> list[dict]:
            tol6, why6, (nbytes(q6, k4, v4, k4s, v4s, q6), {"int8": cross_ops}),
            cold=(k6_i4, (q6, k4, v4, k4s, v4s)), kernel="beam_cross_attention", main=True)
 
+    # K6 in speculative decoding's verify pass (phase 11): the gamma + 1 = 5
+    # positions of one window as the beams of one item, B = 1, int4 slab.
+    qv = torch.randn((1, H, SPEC_GAMMA + 1, HD), generator=g, device=dev).bfloat16()
+    kv4, vv4, kv4s, vv4s = (t[:1].contiguous() for t in (k4, v4, k4s, v4s))
+    record(f"K6 beam_cross_attention int4 verify B=1 K={SPEC_GAMMA + 1}",
+           lambda: k6_i4(qv, kv4, vv4, kv4s, vv4s),
+           lambda: ba.beam_cross_attention_reference(
+               qv, unpack_nibbles_i8(kv4), unpack_nibbles_i8(vv4), kv4s, vv4s, scale=scale),
+           tol6, why6, (nbytes(qv, kv4, vv4, kv4s, vv4s, qv),
+                        {"int8": 4 * H * (SPEC_GAMMA + 1) * HD * F}),
+           cold=(k6_i4, (qv, kv4, vv4, kv4s, vv4s)), kernel="beam_cross_attention",
+           verify=True)
+
     # K5 and K6 at the gang's largest bucket (phase 7): B = 8 items x 5
     # beams, the slot caches of a 224-token budget (256 rows) at both read
     # bounds (K5, bf16 as the gang stores them), and K6 over an int4 slab of
@@ -913,6 +955,13 @@ def run(torch, np, profile: bool = False, kernels_only: bool = False) -> int:
             print("  " + line.strip())
     kernels.lib()
     print(f"  built {path.relative_to(path.parents[2])} in {seconds:.1f} s")
+    if not kernels_only:  # the native WAV parser (native/sstw_native.cpp): required here
+        from sentiric_stt_whisper_service_tpu_torch import native
+
+        t0 = time.perf_counter()
+        require(native.get_lib() is not None, "the native WAV library did not build (g++)")
+        print(f"  native WAV parser {native._lib_path().relative_to(ROOT)}: "
+              f"{time.perf_counter() - t0:.1f} s (build or load)")
 
     print(f"== 3. kernel checks [{card}]")
     checks = check_kernels(torch, np)
@@ -1090,7 +1139,7 @@ def run(torch, np, profile: bool = False, kernels_only: bool = False) -> int:
     # cross read in different places (K4 keeps fp32 weights, the prefill
     # rounds them to bf16), and the drift compounds over 32 layers; a wrong
     # cross read moves the logits by the order of their spread.
-    drift_check("stepwise vs teacher-forced", full, stepwise, torch)
+    drift = drift_check("stepwise vs teacher-forced", full, stepwise, torch)
     print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     print(f"== 5. beam slice: large-v3, int8 weights, int4 cross slab, bf16 self cache, "
@@ -1167,6 +1216,10 @@ def run(torch, np, profile: bool = False, kernels_only: bool = False) -> int:
           f"{list(P1_SHAPE)} [{card}]")
     probe_phase(torch, paths, card)
 
+    print(f"== 11. speculative decoding: large-v3 target, large-v3-turbo draft (seed "
+          f"{SEED + 12}), int4 slabs, fp8 self caches, gamma {SPEC_GAMMA} [{card}]")
+    spec_phase(torch, np, model, paths, card, drift, requests, sequential)
+
     kernels_json = []
     for name, (src, replaces, path) in SOURCES.items():
         mine = [c for c in checks if c["kernel"] == name]
@@ -1185,6 +1238,13 @@ def run(torch, np, profile: bool = False, kernels_only: bool = False) -> int:
             **{k: row[k] for k in ("prepass_device_ms", "attention_device_ms", "k2_device_ms")
                if k in row},
         })
+        verify = next((c for c in mine if c.get("verify")), None)
+        if verify is not None:  # K6 at the verify form, with its launches on the spec path
+            kernels_json[-1]["verify_form"] = {
+                "check": verify["check"], "launches": paths["spec_turbo"][name],
+                "launches_path": "spec_turbo", **{k: verify[k] for k in (
+                    "max_abs_err", "ms", "plain_ms", "device_ms", "cold_device_ms", "bound_ms",
+                    "bound_by", "library_ms")}}
     print(f"  smoke wall {time.perf_counter() - t_start:.1f} s, the build included [{card}]")
     print(card)
     print(json.dumps({"kernels": kernels_json}))
@@ -1217,7 +1277,7 @@ def engine_phase(torch, np, model, paths, card) -> None:
     """Phase 6: the engine on the card (see the module docstring)."""
     import dataclasses
 
-    from sentiric_stt_whisper_service_tpu_torch import kernels
+    from sentiric_stt_whisper_service_tpu_torch import kernels, native
     from sentiric_stt_whisper_service_tpu_torch.audio import parse_wav_robust, write_wav
     from sentiric_stt_whisper_service_tpu_torch.config import Settings
     from sentiric_stt_whisper_service_tpu_torch.models import decode_window, encode_xa_kv_q
@@ -1247,12 +1307,27 @@ def engine_phase(torch, np, model, paths, card) -> None:
     clips.append(("50 s batched", long_clip, 16000, dict(condition_on_previous_text=False)))
     clips.append(("3 s silence", np.zeros(48000, np.float32), 16000, {}))
     requests = []  # (label, pcm16, rate, options): WAVs through the port's writer and parser
-    for label, x, rate, opts in clips:
-        buf = io.BytesIO()
-        write_wav(buf, x, sample_rate=rate)
-        d = parse_wav_robust(buf.getvalue())
-        require(d.is_valid and d.sample_rate == rate, f"{label}: WAV round trip failed")
-        requests.append((label, d.pcm_data, rate, opts))
+    native_parses = []  # the native parser's calls inside parse_wav_robust: succeeded or not
+    real_native = native.parse_wav_native
+
+    def counted_native(data):
+        out = real_native(data)
+        native_parses.append(out is not None)
+        return out
+
+    native.parse_wav_native = counted_native
+    try:
+        for label, x, rate, opts in clips:
+            buf = io.BytesIO()
+            write_wav(buf, x, sample_rate=rate)
+            d = parse_wav_robust(buf.getvalue())
+            require(d.is_valid and d.sample_rate == rate, f"{label}: WAV round trip failed")
+            requests.append((label, d.pcm_data, rate, opts))
+    finally:
+        native.parse_wav_native = real_native
+    require(len(native_parses) == len(clips) and all(native_parses),
+            f"the WAVs did not all parse natively: {native_parses}")
+    print(f"  {len(clips)} WAVs parsed by the native parser (native/sstw_native.cpp)")
 
     sequential = {}  # path -> (audio s, wall s, {label: wall s})
 
@@ -2427,6 +2502,238 @@ def serving_phase(torch, np, paths, card, sets) -> None:
     print(f"  [serving] shutdown in {time.perf_counter() - t0:.2f} s: no thread left")
 
 
+SPEC_SECONDS = (12.0, 30.0)  # phase 11: the windows, each decoded alone (batch 1)
+SPEC_EQUAL_TOKENS = 32  # phase 11: the graphed rounds against eager ones
+
+
+def spec_phase(torch, np, model, paths, card, drift, requests, sequential) -> None:
+    """Phase 11: speculative decoding (see the module docstring)."""
+    from sentiric_stt_whisper_service_tpu_torch import kernels
+    from sentiric_stt_whisper_service_tpu_torch.config import Settings
+    from sentiric_stt_whisper_service_tpu_torch.models import (
+        DecodeGraphs,
+        TokenIds,
+        build_suppress_mask,
+        config_for,
+        decode_window,
+        encoder_apply,
+        init_params,
+        precompute_xa_kv,
+    )
+    from sentiric_stt_whisper_service_tpu_torch.models.sampling import logit_processor
+    from sentiric_stt_whisper_service_tpu_torch.models.speculative import (
+        SpecStats,
+        decode_window_spec,
+    )
+    from sentiric_stt_whisper_service_tpu_torch.models.whisper import (
+        decoder_apply,
+        decoder_verify,
+        init_kv_cache,
+    )
+    from sentiric_stt_whisper_service_tpu_torch.ops import compute_log_mel, pad_or_trim
+    from sentiric_stt_whisper_service_tpu_torch.ops.quant import fuse_decoder_qkv, quantize_params
+    from sentiric_stt_whisper_service_tpu_torch.runtime import (
+        PerformanceMetrics,
+        RequestOptions,
+        SttEngine,
+    )
+    from sentiric_stt_whisper_service_tpu_torch.tokenizer import fallback_tokenizer
+
+    dev = torch.device("cuda")
+    cfg, dcfg = config_for("large-v3"), config_for("large-v3-turbo")
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        g = torch.Generator(device=dev)
+        g.manual_seed(SEED + 12)
+        draft = fuse_decoder_qkv(quantize_params(init_params(dcfg, g)))
+    torch.cuda.synchronize()
+    print(f"  draft large-v3-turbo ({dcfg.n_text_layer} decoder layers, d {dcfg.n_text_state}): "
+          f"random init + quantize + fuse {time.perf_counter() - t0:.1f} s; "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+
+    tok = fallback_tokenizer(cfg.n_vocab)
+    ids = TokenIds.from_tokenizer(tok)
+    sup = torch.from_numpy(build_suppress_mask(cfg.n_vocab, ids, tok.non_speech_tokens)).to(dev)
+    sot = tok.sot_sequence("en")
+    sb = len(sot)
+    tinit = torch.full((1, cfg.n_text_ctx), ids.eot, dtype=torch.int64, device=dev)
+    tinit[0, :sb] = torch.tensor(sot, device=dev)
+    f8 = torch.float8_e4m3fn
+    graphs = DecodeGraphs()
+    rng = np.random.default_rng(SEED + 12)
+    windows = {f"{s:.0f} s": torch.from_numpy(pad_or_trim(speech_like(rng, s))[None]).to(dev)
+               for s in SPEC_SECONDS}
+    process = logit_processor(cfg.n_vocab, ids, sup, True)
+
+    def encode(audio):
+        """K1, K2 and both models' int4 slabs from one encode of the target."""
+        mel = compute_log_mel(audio, n_mels=cfg.n_mels, dtype=cfg.dtype)
+        xa = encoder_apply(cfg, model, mel)
+        return precompute_xa_kv(cfg, model, xa, 4), precompute_xa_kv(dcfg, draft, xa, 4)
+
+    def greedy(xa_t, _xa_d, budget=DECODE_TOKENS, stats=None):
+        return decode_window(cfg, model, xa_t, tinit, sb, 0, ids, sup, max_len=sb + budget,
+                             self_dtype=f8, graphs=graphs)
+
+    def spec_with(d_cfg, d_model, own_slab):
+        def run(xa_t, xa_d, budget=DECODE_TOKENS, stats=None, **kw):
+            return decode_window_spec(cfg, model, xa_t, d_cfg, d_model, xa_t if own_slab else xa_d,
+                                      tinit, sb, 0, ids, sup, max_len=sb + budget,
+                                      gamma=SPEC_GAMMA, self_dtype=f8, graphs=graphs,
+                                      stats=stats, **kw)
+        return run
+
+    runs = {"c": ("graphed decode_window, t = 0", greedy),
+            "a": ("spec, the target as its own draft", spec_with(cfg, model, True)),
+            "b": ("spec, the turbo draft", spec_with(dcfg, draft, False))}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with torch.inference_mode():
+            out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    def divergence(res, ref) -> Optional[int]:
+        n = min(int(res.lengths[0]), int(ref.lengths[0]))
+        diff = (res.tokens[0, sb:n] != ref.tokens[0, sb:n]).nonzero()
+        if diff.numel():
+            return sb + int(diff[0, 0])
+        return None if int(res.lengths[0]) == int(ref.lengths[0]) else n
+
+    def verify_margin(xa_t, tokens, d: int) -> float:
+        """The top-two margin of the processed verify logits for position
+        ``d`` after the common prefix: a plain prefill of positions < d - 1,
+        then the verify pass from d - 1."""
+        with torch.inference_mode():
+            kv = init_kv_cache(cfg, 1, cfg.n_text_ctx, dtype=f8, device=dev)
+            if d > 1:
+                decoder_apply(cfg, model, tokens[:, : d - 1], 0, kv, xa_t)
+            start = min(d - 1, cfg.n_text_ctx - SPEC_GAMMA - 1)
+            logits = decoder_verify(cfg, model, tokens[:, start: start + SPEC_GAMMA + 1],
+                                    torch.tensor([d - 1], device=dev), kv, xa_t)
+            proc = process(logits[:, d - 1 - start], tokens, torch.tensor([d], device=dev),
+                           torch.tensor([sb], device=dev))
+            top = proc[0].topk(2).values
+        return float(top[0] - top[1])
+
+    for label, audio in windows.items():
+        with torch.inference_mode():
+            xa_t, xa_d = encode(audio)
+        results = {}
+        for key in ("c", "a", "b"):
+            name, fn = runs[key]
+            before = len(graphs.stats())
+            _, first_wall = timed(lambda: fn(xa_t, xa_d))
+            for st in graphs.stats()[before:]:
+                print(f"  [{label} {key}] captured {st['graphs']} graph(s) of a "
+                      f"{'round' if st['key'][0] == 'spec' else 'step'} in "
+                      f"{st['capture_s']:.2f} s (eager warm-up included); static buffers "
+                      f"{st['static_bytes'] / 2**20:.1f} MiB, graph pool grown by "
+                      f"{st['pool_bytes'] / 2**20:.1f} MiB; the capturing run's wall "
+                      f"{first_wall:.3f} s [{card}]")
+            stats = SpecStats()
+            kernels.reset_launch_counts()
+            # The path: the encode (K1, K2, both slabs) and the decode, together.
+            res, wall = timed(lambda: fn(*encode(audio), stats=stats))
+            counts = dict(kernels.LAUNCHES)
+            results[key] = res
+            n_tok = int(res.lengths[0]) - sb
+            lp = res.token_logprobs[0, sb:sb + n_tok]
+            require(bool(torch.isfinite(lp).all()) and n_tok > 0,
+                    f"[{label} {key}] no finite tokens")
+            line = (f"  [{label} {key}] {name}: {n_tok} tokens, wall {wall:.3f} s (encode "
+                    f"included), {n_tok / wall:.1f} tokens/s")
+            if key != "c":
+                line += (f"; {stats.rounds} rounds, {stats.emitted / stats.rounds:.2f} tokens "
+                         f"and {stats.accepted / stats.rounds:.2f} accepted drafts a round "
+                         f"({stats.accepted} of {stats.rounds * SPEC_GAMMA} proposed)")
+            print(line + f" [{card}]; launches {counts}")
+            if label == "12 s":
+                path = {"c": "spec_greedy", "a": "spec_self", "b": "spec_turbo"}[key]
+                paths[path] = counts
+                if key == "c":
+                    need_launched(paths, path, ("log_mel", "flash_attention",
+                                                "decode_attention_i4"))
+                    continue
+                need_launched(paths, path, ("log_mel", "flash_attention", "decode_attention_i4",
+                                            "beam_cross_attention"),
+                              absent=("decode_attention", "beam_attention"))
+                replays, left = divmod(counts["beam_cross_attention"], cfg.n_text_layer)
+                d_layers = (cfg if key == "a" else dcfg).n_text_layer
+                require(left == 0 and counts["decode_attention_i4"] == replays * SPEC_GAMMA * d_layers,
+                        f"{path}: K6 {counts['beam_cross_attention']} and K4 "
+                        f"{counts['decode_attention_i4']} launches are not {cfg.n_text_layer} "
+                        f"and {SPEC_GAMMA} x {d_layers} a round")
+                require(replays >= stats.rounds, f"{path}: fewer round replays than rounds")
+                print(f"  [{label} {key}] K6 {cfg.n_text_layer} and K4 {SPEC_GAMMA} x {d_layers} "
+                      f"launches a round: {replays} rounds replayed for {stats.rounds} run")
+        for key in ("a", "b"):
+            d = divergence(results[key], results["c"])
+            if d is None:
+                print(f"  [{label} {key}] token for token equal to (c) over "
+                      f"{int(results['c'].lengths[0]) - sb} tokens")
+                continue
+            margin = verify_margin(xa_t, results["c"].tokens, d)
+            print(f"  [{label} {key}] equal to (c) up to position {d} ({d - sb} tokens); there "
+                  f"the verify logits' top-two margin is {margin:.4f}, the step-vs-teacher-"
+                  f"forced drift {drift:.4f}")
+            require(margin <= 2 * drift,
+                    f"[{label} {key}] diverges from (c) at position {d} with a margin "
+                    f"{margin:.4f} above twice the drift {drift:.4f}")
+        same_ab = divergence(results["a"], results["b"])
+        print(f"  [{label}] (a) and (b): "
+              f"{'equal' if same_ab is None else f'differ from position {same_ab}'}")
+        if label == "12 s":  # the graphed rounds against eager ones, every field
+            for key in ("a", "b"):
+                with torch.inference_mode():
+                    eager = runs[key][1](xa_t, xa_d, budget=SPEC_EQUAL_TOKENS, graph=False)
+                    graphed = runs[key][1](xa_t, xa_d, budget=SPEC_EQUAL_TOKENS)
+                for field in graphed._fields:
+                    require(torch.equal(getattr(graphed, field), getattr(eager, field)),
+                            f"[{label} {key}] graphed {field} differs from the eager rounds")
+                print(f"  [{label} {key}] graphed rounds equal eager rounds in every field "
+                      f"({SPEC_EQUAL_TOKENS}-token budget)")
+    print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # Through the engine: phase 6's greedy settings with the turbo draft.
+    label, pcm, rate, opts = next(r for r in requests if r[0] == "12 s")
+    relaxed = dict(quality_gate="off", logprob_threshold=-1e9, no_speech_threshold=1.0,
+                   min_segment_avg_prob=0.0)
+    settings = Settings(device="auto", compute_type="int4", enable_vad=True,
+                        enable_diarization=True, language="auto", no_timestamps=False,
+                        model_filename="ggml-large-v3.bin", parallel_requests=1, beam_size=1,
+                        draft_model="large-v3-turbo", spec_gamma=SPEC_GAMMA, **relaxed)
+    eng = SttEngine(settings, model_name="large-v3", params=model, random_init=True)
+    require(eng.draft_cfg.n_text_layer == dcfg.n_text_layer, "engine: not the turbo draft")
+    print(f"  [engine_spec] warmup(): {eng.warmup():.2f} s [{card}]")
+    kernels.reset_launch_counts()
+    m = PerformanceMetrics()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = eng.transcribe_pcm16(pcm, rate, RequestOptions(beam_size=1, **opts), m)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    paths["engine_spec"] = dict(kernels.LAUNCHES)
+    stages = ", ".join(f"{k} {v:.1f}" for k, v in m.stages_ms.items())
+    plain = sequential["engine_greedy"][2][label]
+    print(f"  [engine_spec] {label}: wall {wall:.3f} s (phase 6's greedy engine: {plain:.3f} s), "
+          f"{len(res)} segment(s), {sum(r.token_count for r in res)} tokens; speculative "
+          f"{m.spec}; stages ms: {stages} [{card}]; launches {paths['engine_spec']}")
+    require(bool(res) and m.spec.get("rounds", 0) > 0,
+            "engine_spec: the request did not decode speculatively")
+    need_launched(paths, "engine_spec", ("log_mel", "flash_attention", "decode_attention_i4",
+                                         "beam_cross_attention"), absent=("beam_attention",))
+    for st in eng.graphs.stats():
+        print(f"  [engine_spec] graph class {st['key'][0]}: {st['graphs']} graph(s), captured in "
+              f"{st['capture_s']:.2f} s, static buffers {st['static_bytes'] / 2**20:.1f} MiB, "
+              f"pool grown by {st['pool_bytes'] / 2**20:.1f} MiB [{card}]")
+    eng.shutdown()
+    del eng, draft, graphs
+    torch.cuda.empty_cache()
+
+
 def probe_phase(torch, paths, card) -> None:
     """Phase 10: the int8 attention probe (see the module docstring)."""
     from sentiric_stt_whisper_service_tpu_torch import kernels
@@ -2583,10 +2890,10 @@ def profile_slices(torch, cfg, model, audio, timed, card) -> None:
         sampling.SYNC_STEPS = default
 
 
-def drift_check(label, reference, stepwise, torch) -> None:
+def drift_check(label, reference, stepwise, torch) -> float:
     """Stepwise logits (the kernels) against teacher-forced ones (plain
     attention): max |diff| within a quarter of the logits' spread and the
-    argmax agreeing on 90 % of positions."""
+    argmax agreeing on 90 % of positions. Returns max |diff|."""
     require(bool(torch.isfinite(reference).all()) and bool(torch.isfinite(stepwise).all()),
             f"{label}: non-finite logits")
     diff = (reference - stepwise).abs().max().item()
@@ -2597,6 +2904,7 @@ def drift_check(label, reference, stepwise, torch) -> None:
     require(diff <= 0.25 * spread and agree >= 0.9,
             f"{label}: logits differ by {diff:.4f} (bound 0.25 x std {spread:.3f}), "
             f"argmax agreement {agree:.3f} (bound 0.9)")
+    return diff
 
 
 if __name__ == "__main__":

@@ -60,9 +60,20 @@ def decode_with_ffmpeg(data: bytes, sample_rate: int = 16000) -> np.ndarray:
 def parse_wav_robust(data: bytes) -> DecodedAudio:
     """Decode bytes to mono int16 PCM with the reference's fallback chain.
 
-    The JAX package's copy of this parser first tries its native C++
-    library (``native/``); that library is not part of this package, so
-    the Python parser below is the only path here."""
+    The common case (a valid PCM16 WAV) takes the native C++ parser
+    (``native.parse_wav_native``, over ``native/sstw_native.cpp``) where its
+    library builds; the Python parser below is the reference implementation
+    and the fallback, as in the JAX package."""
+    if has_wav_header(data):
+        try:
+            from ..native import parse_wav_native
+
+            parsed = parse_wav_native(data)
+        except Exception:
+            parsed = None
+        if parsed is not None:
+            pcm, rate, channels = parsed
+            return DecodedAudio(pcm, rate, channels, True)
     if not has_wav_header(data):
         log.info("No WAV header; attempting ffmpeg conversion")
         converted = decode_with_ffmpeg(data)

@@ -1,22 +1,35 @@
-"""Checkpoint loading: GGML .bin (whisper.cpp) and safetensors (HF).
+"""Checkpoint loading: GGML .bin (whisper.cpp) and safetensors (HF); and
+the parameters' own save / restore (``save_params`` / ``restore_params``).
 
-The JAX package's Orbax ``save_params`` / ``restore_params`` (fine-tuning
-state of a JAX pytree) are not ported: they are JAX-only, and the port's
-counterpart waits for the checkpoint converter (ROADMAP queue 1 item 16).
+The JAX package saves a parameter pytree with Orbax (a checkpoint
+directory). The port writes one safetensors file instead: the parameter
+tree flattened to the JAX package's dotted names (``decoder.blocks.attn.q.w``,
+each layer's leaves stacked on a leading axis), fp32, through a temporary
+file renamed into place.
 """
 
 from __future__ import annotations
 
+import os
+import tempfile
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from ..config import Settings
-from ..models.whisper import WhisperConfig
+from ..models.params import from_jax_numpy, to_numpy_tree
+from ..models.whisper import Whisper, WhisperConfig
 from ..tokenizer import WhisperTokenizer, fallback_tokenizer
 from .ggml import load_ggml, write_ggml  # noqa: F401
 from .manager import ModelManager  # noqa: F401
-from .safetensors_io import load_safetensors  # noqa: F401
+from .safetensors_io import (  # noqa: F401
+    flatten_tree,
+    load_safetensors,
+    read_safetensors,
+    unflatten_tree,
+    write_safetensors,
+)
 
 
 def load_checkpoint(settings: Settings, cfg: WhisperConfig | None = None, device="cpu"):
@@ -50,3 +63,47 @@ def _sibling_tokenizer(path: Path, cfg: WhisperConfig):
     if vocab_json.exists():
         return WhisperTokenizer.from_hf_files(str(vocab_json), cfg.num_languages)
     return fallback_tokenizer(cfg.n_vocab)
+
+
+# ---------------------------------------------------------------------------
+# Save / restore of the parameters (fine-tuning state; the counterpart of the
+# JAX package's Orbax save_params / restore_params)
+# ---------------------------------------------------------------------------
+
+
+def save_params(path: str, params) -> None:
+    """Save ``params`` (an unquantized, unfused ``Whisper``, or a nested
+    dict of arrays or tensors) to the safetensors file ``path``, atomically:
+    written to a temporary file beside it, then renamed over it."""
+    tree = to_numpy_tree(params) if isinstance(params, Whisper) else params
+    target = Path(path).resolve()
+    fd, tmp = tempfile.mkstemp(prefix=target.name + ".", suffix=".tmp", dir=target.parent)
+    try:
+        with os.fdopen(fd, "wb") as f:
+            write_safetensors(f, flatten_tree(tree), metadata={"format": "sstw-params"})
+        os.replace(tmp, target)
+    except BaseException:
+        Path(tmp).unlink(missing_ok=True)
+        raise
+
+
+def restore_params(path: str, like=None):
+    """Restore what :func:`save_params` wrote: the nested dict of numpy
+    arrays, or with ``like`` its form: a ``Whisper`` like ``like`` (its
+    config, dtype and device), or for a dict each leaf in the dtype and on
+    the device of ``like``'s leaf (numpy leaves stay numpy)."""
+    tree = unflatten_tree(read_safetensors(str(Path(path).resolve())))
+    if like is None:
+        return tree
+    if isinstance(like, Whisper):
+        device = next(like.parameters()).device
+        return from_jax_numpy(tree, like.cfg, device, like.cfg.dtype)
+
+    def cast(value, ref):
+        if isinstance(ref, dict):
+            return {k: cast(value[k], r) for k, r in ref.items()}
+        if isinstance(ref, torch.Tensor):
+            return torch.from_numpy(np.array(value)).to(ref.device, ref.dtype)
+        return np.asarray(value, np.asarray(ref).dtype)
+
+    return cast(tree, like)

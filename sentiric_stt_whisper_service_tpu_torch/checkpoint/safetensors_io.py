@@ -5,13 +5,18 @@ A copy of the JAX package's ``checkpoint/safetensors_io.py``: HF
 (WhisperForConditionalGeneration) or the bare ``encoder.layers.N.*``
 variant (WhisperModel). The name mapping is the same numpy; the last step
 builds a ``Whisper`` module through ``models/params.from_jax_numpy``. The
-file is read here (``read_safetensors``: an 8-byte header length, a JSON
-header, the raw tensors), so the port needs no ``safetensors`` package.
+format is read and written here (``read_safetensors`` /
+``write_safetensors``: an 8-byte little-endian header length, a JSON
+header padded to 8 bytes, the raw little-endian tensors), so the port needs
+no ``safetensors`` package. ``flatten_tree`` / ``unflatten_tree`` map a
+parameter tree to and from its dotted names (the JAX package's converter
+walk), the layout of ``checkpoint.save_params``.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import struct
 
 import numpy as np
@@ -43,6 +48,78 @@ def read_safetensors(path: str) -> dict[str, np.ndarray]:
             arr = np.frombuffer(raw, _DTYPES[info["dtype"]])
         out[name] = arr.reshape(info["shape"])
     return out
+
+
+_CODES = {np.dtype(v): k for k, v in _DTYPES.items()}
+
+
+def _raw(value) -> tuple[str, tuple, bytes]:
+    """(dtype code, shape, little-endian bytes) of an array or a tensor;
+    a bfloat16 tensor is written as BF16."""
+    if isinstance(value, torch.Tensor):
+        value = value.detach().cpu().contiguous()
+        if value.dtype == torch.bfloat16:
+            return "BF16", tuple(value.shape), value.view(torch.int16).numpy().tobytes()
+        value = value.numpy()
+    a = np.asarray(value)
+    code = _CODES.get(a.dtype.newbyteorder("<"))
+    if code is None:
+        raise ValueError(f"safetensors: no dtype code for {a.dtype}")
+    return code, a.shape, np.ascontiguousarray(a, a.dtype.newbyteorder("<")).tobytes()
+
+
+def write_safetensors(path, tensors: dict, metadata: dict | None = None) -> None:
+    """Write ``tensors`` (name → numpy array or torch tensor) as a
+    safetensors file that ``read_safetensors`` and the ``safetensors``
+    package load. The tensors follow each other with no gap, the wider
+    element types first and by name within a width, so each starts aligned
+    to its element size; the header is padded with spaces so the data
+    starts 8-byte aligned. ``path`` is a path or a binary file."""
+    raws = {name: _raw(v) for name, v in tensors.items()}
+    def width(name):
+        code = raws[name][0]
+        return 2 if code == "BF16" else np.dtype(_DTYPES[code]).itemsize
+
+    order = sorted(raws, key=lambda n: (-width(n), n))
+    header, at = {}, 0
+    if metadata:
+        header["__metadata__"] = {str(k): str(v) for k, v in metadata.items()}
+    for name in order:
+        code, shape, data = raws[name]
+        header[name] = {"dtype": code, "shape": list(shape), "data_offsets": [at, at + len(data)]}
+        at += len(data)
+    blob = json.dumps(header, separators=(",", ":")).encode()
+    blob += b" " * (-len(blob) % 8)
+    f = open(path, "wb") if isinstance(path, (str, os.PathLike)) else path
+    try:
+        f.write(struct.pack("<Q", len(blob)))
+        f.write(blob)
+        for name in order:
+            f.write(raws[name][2])
+    finally:
+        if f is not path:
+            f.close()
+
+
+def flatten_tree(tree: dict, prefix: str = "") -> dict:
+    """A nested dict → {dotted name: leaf}, the JAX package's converter walk."""
+    out = {}
+    for k, v in tree.items():
+        name = f"{prefix}.{k}" if prefix else k
+        out.update(flatten_tree(v, name) if isinstance(v, dict) else {name: v})
+    return out
+
+
+def unflatten_tree(flat: dict) -> dict:
+    """The inverse of ``flatten_tree``."""
+    tree: dict = {}
+    for name, v in flat.items():
+        node = tree
+        *parents, leaf = name.split(".")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return tree
 
 
 def _strip_prefix(name: str) -> str:

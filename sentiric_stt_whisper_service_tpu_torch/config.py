@@ -14,8 +14,8 @@ What the port reads differently:
   * ``flash_attn``: the encoder's attention always runs the K2 kernel on the
     card; ``FLASH_ATTN=0`` has no effect there (the engine says so in its
     log).
-  * ``draft_model`` and a ``mesh_shape`` other than ``"1"`` are not ported
-    yet; the engine refuses them.
+  * a ``mesh_shape`` other than ``"1"`` is not ported yet; the engine
+    refuses it.
 """
 
 from __future__ import annotations
@@ -138,8 +138,10 @@ class Settings:
     # positions; -1 = per window the smallest of {384, 768, 1152, 1500}
     # covering its audio; N = a fixed context (64..1500).
     audio_ctx: int = 0
-    # Speculative decoding with a draft model: not ported yet (the engine
-    # refuses a non-empty value).
+    # Speculative decoding (models/speculative.py): a draft model of the
+    # same encoder width (e.g. "large-v3-turbo" for "large-v3") proposes
+    # spec_gamma tokens per round and the target verifies them in one pass;
+    # a greedy window's output is the target's greedy decode.
     draft_model: str = ""
     spec_gamma: int = 4
     # Decode micro-batch size: windows per call on the batched long-form

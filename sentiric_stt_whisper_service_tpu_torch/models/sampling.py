@@ -134,8 +134,14 @@ def apply_timestamp_rules(
     pos = torch.as_tensor(pos, dtype=torch.int64, device=dev).expand(B)
     sample_begin = torch.as_tensor(sample_begin, dtype=torch.int64, device=dev).expand(B)
 
-    def tok_at(idx):  # [B] gather of tokens[b, idx[b]]
-        return torch.gather(tokens, 1, idx.clamp(min=0)[:, None].to(torch.int64))[:, 0]
+    ctx = tokens.shape[1]
+
+    def tok_at(idx):
+        """[B] gather of tokens[b, idx[b]]; past the buffer's end (a
+        speculative round's overshoot) int32's minimum, as
+        ``jnp.take_along_axis`` fills it."""
+        got = torch.gather(tokens, 1, idx.clamp(0, ctx - 1)[:, None].to(torch.int64))[:, 0]
+        return torch.where(idx < ctx, got, -2**31)
 
     last = torch.where(pos > sample_begin, tok_at(pos - 1), -1)
     penult = torch.where(pos > sample_begin + 1, tok_at(pos - 2), -1)

@@ -689,6 +689,61 @@ def decoder_step(
     return tied_logits(x, dec)[:, 0], kv_cache
 
 
+def decoder_verify(
+    cfg: WhisperConfig,
+    model: Whisper,
+    tokens: torch.Tensor,  # [B, T] int
+    pos: torch.Tensor,  # [1] int64 on the device: the position of tokens[:, 0]
+    kv_cache: dict,  # [L, B, H, cache_len, hd], written in place
+    xa_kv: dict,  # [L, B, H, hd, 1500] KF (+ scales when quantized)
+) -> torch.Tensor:
+    """``decoder_apply`` over T tokens at a device position: speculative
+    decoding's verify pass (T = γ + 1), which a CUDA graph replays at
+    whatever position ``pos`` holds. Returns logits [B, T, V] fp32.
+
+    Where the window nears the end of the context, the rows land as the JAX
+    package's ``dynamic_slice`` / ``dynamic_update_slice`` put them: the
+    position embeddings start at ``pos`` clamped to ``n_text_ctx - T``, the
+    cache rows at ``pos`` clamped to ``cache_len - T``, while the causal mask
+    keeps the unclamped ``pos + i``. Self-attention is plain masked attention
+    over the cache (XLA's in the JAX package); the cross read is K6 with the
+    T queries as its beams against the item's one slab."""
+    dec = model.decoder
+    B, T = tokens.shape
+    h = cfg.n_text_head
+    d = cfg.n_text_state
+    hd = d // h
+    scale = hd**-0.25
+    dev = tokens.device
+    steps = torch.arange(T, device=dev)
+    cache_len = kv_cache["k"].shape[3]
+    emb_rows = pos.clamp(0, cfg.n_text_ctx - T) + steps
+    cache_rows = pos.clamp(0, cache_len - T) + steps
+    x = (embed_tokens(dec, tokens) + dec.pos_emb.index_select(0, emb_rows)).to(cfg.dtype)
+    self_mask = (torch.arange(cache_len, device=dev)[None, :] <= (pos + steps)[:, None])[None, None]
+
+    def to_heads(y):  # [B,T,d] → head-major [B,H,T,c]
+        return _split_heads(y, h).transpose(1, 2)
+
+    for li, layer in enumerate(dec.blocks):
+        y = layer_norm(x, layer.attn_ln)
+        qp, kp, vp = _self_qkv(y, layer.attn)
+        for cache, new in ((kv_cache["k"][li], kp), (kv_cache["v"][li], vp)):
+            int_view(cache).index_copy_(2, cache_rows, int_view(to_heads(new).to(cache.dtype)))
+        sa = _attend(to_heads(qp) * (scale * scale), kv_cache["k"][li], kv_cache["v"][li],
+                     self_mask)
+        x = x + dense(sa.transpose(1, 2).reshape(B, T, d).to(x.dtype), layer.attn.o)
+
+        y = layer_norm(x, layer.cross_attn_ln)
+        q = to_heads(dense(y, layer.cross_attn.q)).contiguous()  # [B,H,T,hd]
+        ca = _attend_xa_beam(q, _xa_layer(xa_kv, li), scale)
+        x = x + dense(ca.transpose(1, 2).reshape(B, T, d).to(x.dtype), layer.cross_attn.o)
+
+        x = x + mlp(layer_norm(x, layer.mlp_ln), layer.mlp_1, layer.mlp_2)
+    x = layer_norm(x, dec.ln)
+    return tied_logits(x, dec)
+
+
 def decoder_step_beam(
     cfg: WhisperConfig,
     model: Whisper,

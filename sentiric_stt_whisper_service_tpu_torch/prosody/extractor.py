@@ -2,14 +2,14 @@
 ``prosody/extractor.py``.
 
 The JAX package keeps two forms of the reference service's DSP
-(its prosody_extractor.cpp): a jitted, batched ``prosody_numeric`` that
-only its tests reach, and the numpy twin ``_prosody_numeric_np`` that
-``extract_prosody`` serves with. The port copies the serving path: the
-numpy twin, the shared heuristics ``_heuristics`` (octave-error halving,
-gender rules, relative emotion, the 8-D speaker vector) over numpy, the
-options, tags and code tables. The batched form waits for the batcher
-(ROADMAP queue 1 item 10). It runs on the host, where the reference runs
-it.
+(its prosody_extractor.cpp): a jitted ``prosody_numeric`` over one padded
+clip that only its tests reach, and the numpy twin ``_prosody_numeric_np``
+that ``extract_prosody`` serves with. The port has both: the numpy twin
+(the serving path, on the host where the reference runs it), and
+``prosody_numeric``, one batched torch function over padded clips and
+their lengths (float64, on the clips' device), sharing the heuristics
+``_heuristics`` (octave-error halving, gender rules, relative emotion, the
+8-D speaker vector), the options, tags and code tables.
 
 Semantics (prosody_extractor.cpp): 10 ms frames, trailing partial frame
 dropped; per-frame RMS, onset peaks at 0.05, standard ZCR; a one-pole
@@ -22,8 +22,10 @@ spectral-centroid proxy; the lower-median pitch.
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,6 +58,24 @@ class AffectiveTags:
         default_factory=lambda: np.zeros(8, np.float32)
     )
     speech_rate: float = 0.0
+
+
+class ProsodyNumeric(NamedTuple):
+    """``prosody_numeric``'s result, one entry per clip (the strings as
+    codes into ``GENDER_CODES`` / ``EMOTION_CODES``)."""
+
+    pitch_mean: torch.Tensor  # [B] f64
+    pitch_std: torch.Tensor
+    energy_mean: torch.Tensor
+    energy_std: torch.Tensor
+    spectral_centroid: torch.Tensor
+    zero_crossing_rate: torch.Tensor
+    arousal: torch.Tensor
+    valence: torch.Tensor
+    gender_code: torch.Tensor  # [B] int64
+    emotion_code: torch.Tensor  # [B] int64
+    speaker_vec: torch.Tensor  # [B, 8] f64
+    speech_rate: torch.Tensor
 
 
 def _soft_norm(val, lo, hi, xp=np):
@@ -215,6 +235,126 @@ def _prosody_numeric_np(audio: np.ndarray, sample_rate: int,
         float(pitch_mean), pitch_std, energy_mean, energy_std, sc_mean,
         zcr_mean, float(arousal), float(valence), int(gender), int(emotion),
         np.asarray(vec, np.float32), speech_rate,
+    )
+
+
+def _one_pole_lpf(x: torch.Tensor, alpha: float, shift: int) -> torch.Tensor:
+    """``y[t] = (1 - alpha) y[t-1] + alpha x[t]``, ``y[-1] = 0``, over each
+    row of ``x`` [B, F*shift]: inside each frame a lower-triangular product
+    from a zero start, then each frame's start carried from the previous
+    frame's end by a doubling scan over the frames (the JAX package's
+    ``associative_scan``). Returns [B, F, shift]."""
+    B = x.shape[0]
+    frames = x.reshape(B, -1, shift)
+    r = 1.0 - alpha
+    k = torch.arange(shift, dtype=x.dtype, device=x.device)
+    lag = k[:, None] - k[None, :]
+    within = torch.where(lag >= 0, alpha * r ** lag.clamp(min=0), 0.0)  # [k, j]
+    z = frames @ within.T  # each frame from a zero start
+    ends = z[:, :, -1]
+    step, carry = 1, r**shift
+    while step < ends.shape[1]:  # ends[f] = sum over g <= f of r^(shift (f-g)) z_end[g]
+        ends = torch.cat([ends[:, :step], ends[:, step:] + carry * ends[:, :-step]], dim=1)
+        step, carry = 2 * step, carry * carry
+    start = torch.cat([torch.zeros_like(ends[:, :1]), ends[:, :-1]], dim=1)
+    return z + r ** (k + 1) * start[:, :, None]
+
+
+def _masked_lower_median(vals: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Per row, the element at sorted index count // 2 of the valid ones
+    (``nth_element(n/2)``); 0 for a row with none."""
+    count = valid.sum(dim=1)
+    ordered = torch.where(valid, vals, torch.inf).sort(dim=1).values
+    idx = (count // 2).clamp(max=vals.shape[1] - 1)
+    got = ordered.gather(1, idx[:, None])[:, 0]
+    return torch.where(count > 0, got, 0.0)
+
+
+def _masked_mean_std(vals: torch.Tensor, valid: torch.Tensor):
+    """Per row, the mean and population std of the valid entries (0, 0 for
+    a row with none)."""
+    n = valid.sum(dim=1)
+    count = n.clamp(min=1).to(vals.dtype)
+    mean = torch.where(valid, vals, 0.0).sum(dim=1) / count
+    var = torch.where(valid, (vals - mean[:, None]) ** 2, 0.0).sum(dim=1) / count
+    return torch.where(n > 0, mean, 0.0), torch.where(n > 0, var.sqrt(), 0.0)
+
+
+def prosody_numeric(
+    audio: torch.Tensor,  # [B, N] float, zero-padded clips
+    n_samples: torch.Tensor,  # [B] int: each clip's valid length
+    sample_rate: int = 16000,
+    opts: ProsodyOptions = ProsodyOptions(),
+) -> ProsodyNumeric:
+    """The numeric prosody of a batch of padded clips, in float64 on their
+    device: the JAX package's ``prosody_numeric`` over each row, where only
+    the frames fully inside the first ``n_samples`` count, and a clip
+    shorter than one frame gets the neutral tags."""
+    shift = sample_rate // 100
+    B = audio.shape[0]
+    n_frames = audio.shape[1] // shift
+    x = audio[:, : n_frames * shift].to(torch.float64)
+    n = torch.as_tensor(n_samples, device=x.device).reshape(B).to(torch.int64)
+    dev = x.device
+
+    frame_valid = (torch.arange(1, n_frames + 1, device=dev)[None, :] * shift) <= n[:, None]
+    frames = x.reshape(B, n_frames, shift)
+    filt = _one_pole_lpf(x, opts.lpf_alpha, shift)
+
+    # --- RMS energy + onset peaks ---
+    rms = frames.square().mean(dim=2).sqrt()
+    prev_rms = torch.cat([torch.zeros_like(rms[:, :1]), rms[:, :-1]], dim=1)
+    peak_count = (frame_valid & (rms > 0.05) & (prev_rms <= 0.05)).sum(dim=1)
+
+    # --- standard ZCR over the filtered frame ---
+    nonneg = filt >= 0.0
+    zcr = (nonneg[:, :, 1:] != nonneg[:, :, :-1]).sum(dim=2).to(x.dtype) / shift
+
+    # --- hysteresis cycle counting on the filtered frame ---
+    c = torch.clamp(rms * 0.15, min=0.002)[:, :, None]
+    sign = torch.where(filt > c, 1, torch.where(filt < -c, -1, 0))
+    k = torch.arange(shift, device=dev)
+    last_nz = torch.where(sign != 0, k, -1).cummax(dim=2).values
+    prev_nz = torch.cat([torch.full_like(last_nz[:, :, :1], -1), last_nz[:, :, :-1]], dim=2)
+    prev_sign = torch.where(prev_nz >= 0, sign.gather(2, prev_nz.clamp(min=0)), 0)
+    cycles = ((sign[:, :, 1:] == -1) & (prev_sign[:, :, 1:] == 1)).sum(dim=2)
+
+    f0 = cycles.to(x.dtype) / (shift / sample_rate)
+    f0_valid = (frame_valid & (rms > 0.015) & (cycles > 0) & (f0 >= opts.min_pitch)
+                & (f0 <= opts.max_pitch))
+
+    # --- spectral centroid proxy (first differences of the raw frame) ---
+    diff = (frames[:, :, 1:] - frames[:, :, :-1]).abs()
+    power = diff.sum(dim=2)
+    weighted = (diff * k[1:].to(x.dtype)).sum(dim=2)
+    sc = torch.where(power > 0, weighted / power.clamp(min=1e-20), 0.0)
+
+    # --- aggregation ---
+    pitch_mean = _masked_lower_median(f0, f0_valid)
+    _, pitch_std = _masked_mean_std(f0, f0_valid)
+    energy_mean, energy_std = _masked_mean_std(rms, frame_valid)
+    any_frame = frame_valid.any(dim=1)
+    energy_mean = torch.where(any_frame, energy_mean, 0.01)
+    sc_mean = torch.where(any_frame, _masked_mean_std(sc, frame_valid)[0], 50.0)
+    zcr_mean = torch.where(any_frame, _masked_mean_std(zcr, frame_valid)[0], 0.1)
+
+    duration = n.to(x.dtype) / sample_rate
+    speech_rate = torch.where(duration > 0, peak_count / duration.clamp(min=1e-9), 0.0)
+
+    pitch_mean, gender, arousal, valence, emotion, vec = _heuristics(
+        torch, pitch_mean, pitch_std, energy_mean, sc_mean, zcr_mean, speech_rate, opts)
+
+    empty = n < shift  # shorter than one frame: the neutral tags
+
+    def z(v):
+        return torch.where(empty, torch.zeros_like(v), v)
+
+    return ProsodyNumeric(
+        pitch_mean=z(pitch_mean), pitch_std=z(pitch_std), energy_mean=z(energy_mean),
+        energy_std=z(energy_std), spectral_centroid=z(sc_mean), zero_crossing_rate=z(zcr_mean),
+        arousal=z(arousal), valence=z(valence), gender_code=z(gender),
+        emotion_code=z(emotion), speaker_vec=torch.where(empty[:, None], 0.0, vec.T),
+        speech_rate=z(speech_rate),
     )
 
 

@@ -56,12 +56,21 @@ What differs from the JAX package:
   * **Random draws.** Sampled rungs draw from a ``torch.Generator`` on the
     engine's device, seeded from the clock as the JAX package seeds its key;
     the draws differ from ``jax.random``'s.
-  * **Refused, not hidden**: ``draft_model`` (speculative decoding, ROADMAP
-    queue 1 item 14), ``mesh_shape`` other than "1" (item 15) and
-    ``beam_size`` above ``config.MAX_BEAM_SIZE`` raise at construction; a
-    request's ``beam_size`` above it raises. ``FLASH_ATTN=0`` has no effect
-    here: the encoder's attention runs K2 on the card (the engine says so in
-    its log when it is built).
+  * **Speculative decoding.** With ``draft_model`` set, the draft loads
+    as the target does (its own seed under ``random_init``,
+    ``ggml-{draft}.bin`` otherwise), quantized and fused the same way, and
+    must share the target's encoder width: one encode of the target feeds
+    both models' cross K/V. A greedy t = 0 window then decodes through
+    ``models/speculative.decode_window_spec`` (the abort polled before it),
+    on every request at ``parallel_requests`` = 1 and above it whenever the
+    batcher of its width is idle; ``PerformanceMetrics.spec`` counts the
+    request's rounds, emitted tokens and accepted drafts.
+  * **Refused, not hidden**: ``mesh_shape`` other than "1" (ROADMAP queue 1
+    item 15), ``beam_size`` above ``config.MAX_BEAM_SIZE`` and a draft of
+    another encoder width raise at construction; a request's ``beam_size``
+    above the limit raises. ``FLASH_ATTN=0`` has no effect here: the
+    encoder's attention runs K2 on the card (the engine says so in its log
+    when it is built).
   * ``warmup()`` captures the decode graph classes of the configured ladder
     and of a streaming session's greedy partial ticks, and, at
     ``parallel_requests`` > 1, builds the batcher's pools (their step graphs)
@@ -108,6 +117,7 @@ from ..models import (
     precompute_xa_kv,
 )
 from ..models.graphs import DeviceLock, to_device, to_host
+from ..models.speculative import SpecStats, decode_window_spec
 from ..models.sampling import PROMPT_BUCKETS, prompt_bucket
 from ..models.timestamps import align_bucket, alignment_scores, compute_token_times, token_boundaries
 from ..ops import N_SAMPLES, SAMPLE_RATE, compute_log_mel
@@ -212,6 +222,9 @@ class PerformanceMetrics:
     # Milliseconds per stage of the request on the device: "detect",
     # "encode", "decode", "align" and "prosody" (with clustering).
     stages_ms: dict = dataclasses.field(default_factory=dict)
+    # Speculative decoding's counts over the request's windows: "rounds",
+    # "emitted" (tokens) and "accepted" (draft tokens the target kept).
+    spec: dict = dataclasses.field(default_factory=dict)
 
 
 def resolve_device(name: str) -> torch.device:
@@ -261,16 +274,11 @@ class SttEngine:
         params=None,
         tokenizer: Optional[WhisperTokenizer] = None,
         random_init: bool = False,
+        draft_params=None,
     ):
         self.settings = settings
         name = model_name or settings.model_filename.replace("ggml-", "").replace(".bin", "")
         self.model_name = name
-        dm = (settings.draft_model or "").strip()
-        if dm:
-            raise NotImplementedError(
-                f"draft_model={dm!r}: speculative decoding (models/speculative.py) is not "
-                "ported yet (ROADMAP queue 1 item 14)"
-            )
         if settings.mesh_shape not in ("1", "", None):
             raise NotImplementedError(
                 f"mesh_shape={settings.mesh_shape!r}: sharding over a device mesh "
@@ -308,6 +316,11 @@ class SttEngine:
                 quantize_params(params)
             fuse_decoder_qkv(params)  # one q/k/v product on the decode path
         self.params = params
+        self.draft_cfg: Optional[WhisperConfig] = None
+        self.draft_params = None
+        dm = (settings.draft_model or "").strip()
+        if dm:
+            self._load_draft(dm, draft_params, random_init)
         if not settings.flash_attn:
             log.warning("FLASH_ATTN=0 has no effect in the PyTorch port: the encoder's "
                         "attention runs its CUDA kernel (K2) on the card")
@@ -346,6 +359,44 @@ class SttEngine:
         self._inflight = 0
         self._beam_inflight = 0
         self._count_lock = threading.Lock()
+
+    def _load_draft(self, dm: str, draft_params, random_init: bool) -> None:
+        """The speculative draft (``draft_params``, a ``Whisper``, when the
+        caller gives one): loaded, quantized and fused as the target. Its
+        cross K/V comes from the target's encoder output, so its encoder
+        width must match."""
+        settings = self.settings
+        draft_cfg = config_for(dm) if draft_params is None else draft_params.cfg
+        if draft_cfg.n_audio_state != self.cfg.n_audio_state:
+            raise ValueError(
+                f"draft_model {dm!r} encoder width {draft_cfg.n_audio_state} != target "
+                f"{self.cfg.n_audio_state} — cannot share encoder output")
+        if draft_params is None:
+            if random_init:
+                g = torch.Generator(device=self.device)
+                g.manual_seed(1)
+                draft_params = init_params(draft_cfg, g)
+            else:
+                from ..checkpoint import load_checkpoint
+
+                draft_params, _ = load_checkpoint(
+                    dataclasses.replace(settings, model_filename=f"ggml-{dm}.bin"), draft_cfg,
+                    self.device)
+        draft_params = draft_params.to(self.device)
+        with torch.inference_mode():
+            if self.quantized and not is_quantized(draft_params):
+                quantize_params(draft_params)
+            fuse_decoder_qkv(draft_params)
+        self.draft_cfg, self.draft_params = draft_params.cfg, draft_params
+        if settings.parallel_requests > 1:
+            from ..serving.suts_logging import suts_warn
+
+            suts_warn(
+                "spec_decode_opportunistic", None, None, None,
+                "DRAFT_MODEL=%s with PARALLEL_REQUESTS=%d: speculative decoding engages only "
+                "when no other request is in flight; concurrent bursts use the continuous "
+                "batcher. Set PARALLEL_REQUESTS=1 to force it on every request.",
+                dm, settings.parallel_requests)
 
     # ------------------------------------------------------------------
     @contextlib.contextmanager
@@ -398,7 +449,10 @@ class SttEngine:
         first rung (greedy or beam at full context, and greedy at every
         audio_ctx bucket under audio_ctx=-1) and, when the ladder can climb,
         its sampled rung (best-of or greedy sampling). Each decode is cut at
-        its first chunk once its graphs are captured. At
+        its first chunk once its graphs are captured. With a draft model
+        the greedy first rung's classes are the speculative ones, one per
+        encoder width (a 16-token decode each), and the engine's own greedy
+        and tick classes are left out. At
         ``parallel_requests`` > 1 it also builds the batcher's pool of every
         audio_ctx width a greedy first rung can meet (its step graphs), or
         captures the beam gang's class at every batch bucket. Language
@@ -421,13 +475,24 @@ class SttEngine:
         if s.temperature + 0.2 <= 1.0 + 1e-6:
             rungs.append((max(s.temperature, 0.0) + 0.2, s.beam_size, s.best_of))
         greedy = s.temperature <= 0.0 and s.beam_size <= 1
+        # With a draft, a greedy t = 0 window decodes speculatively (or, under
+        # load, in the batcher): the engine's own greedy classes go unused.
+        spec = self.draft_params is not None and greedy
         for temp, beam, best_of in rungs:
             # A greedy first rung as a lone raw window: the engine's own class.
             raw = greedy and temp <= 0.0
+            if raw and spec:
+                continue
             self._decode_one(None if raw else xa, sot, len(sot), 0, temp, beam, best_of,
                              should_abort=_cut_after_first_poll(),
                              window_audio=clip if raw else None)
-        if s.audio_ctx == -1 and greedy:
+        if spec:  # the speculative class of every width a greedy window can meet
+            widths = ([b for b in self.AUDIO_CTX_BUCKETS if b < self.cfg.n_audio_ctx]
+                      if s.audio_ctx == -1 else []) + [self._window_ctx(N_SAMPLES)]
+            for n_ctx in widths:
+                xa_t, xa_d = self._encode_window_with_draft(clip[None], n_ctx)
+                self._decode_spec(xa_t, xa_d, sot, len(sot), 0, None, TOKEN_CAP_BUCKETS[0])
+        elif s.audio_ctx == -1 and greedy:
             for b in self.AUDIO_CTX_BUCKETS:
                 if b < self.cfg.n_audio_ctx:
                     self._decode_one(None, sot, len(sot), 0, 0.0, 1, 1,
@@ -450,7 +515,8 @@ class SttEngine:
                 sample_begin=len(sot), sot_index=0, beam_size=s.beam_size,
                 max_len=min(self.cfg.n_text_ctx, prefill + SAMPLE_LEN), prefill_len=prefill,
                 xa_f=self.cfg.n_audio_ctx, use_timestamps=True))
-        self._warmup_tick_classes(clip, sot)
+        if not spec:  # with a draft a tick's window decodes speculatively
+            self._warmup_tick_classes(clip, sot)
         if not s.no_timestamps:
             seq = np.asarray(sot + [100 + i for i in range(8)], np.int64)
             with self._eager, self._device.shared():
@@ -545,14 +611,16 @@ class SttEngine:
                 return b if b < full else None
         return None
 
-    def _encode_window(self, windows: np.ndarray, n_ctx: Optional[int] = None) -> dict:
+    def _encode_window(self, windows: np.ndarray, n_ctx: Optional[int] = None,
+                       with_draft: bool = False):
         """audio windows [B, N] → cross-attention K/V on the engine's device:
         log-mel (K1 on the card), encoder (K2), then the K/V of every
         decoder layer, quantized to int8 or the packed int4 carrier by
         compute_type. ``n_ctx`` crops (or zero-pads) the window to its first
         ``n_ctx`` encoder positions (audio_ctx). An odd ``n_ctx`` under
         int4 raises (the carrier packs position pairs), as in the JAX
-        package."""
+        package. ``with_draft`` also returns the draft's cross K/V from the
+        same encoder output: (target's, draft's)."""
         windows = np.asarray(windows, np.float32)
         if n_ctx is not None:
             target = n_ctx * 320
@@ -565,8 +633,17 @@ class SttEngine:
         with self._stage("encode"), self._eager, self._device.shared(), torch.inference_mode():
             audio = to_device(np.ascontiguousarray(windows), self.device)
             mel = compute_log_mel(audio, n_mels=cfg.n_mels, dtype=cfg.dtype)
-            return precompute_xa_kv(cfg, self.params, encoder_apply(cfg, self.params, mel),
-                                    self.xa_bits)
+            xa = encoder_apply(cfg, self.params, mel)
+            xa_kv = precompute_xa_kv(cfg, self.params, xa, self.xa_bits)
+            if not with_draft:
+                return xa_kv
+            return xa_kv, precompute_xa_kv(self.draft_cfg, self.draft_params,
+                                           xa.to(self.draft_cfg.dtype), self.xa_bits)
+
+    def _encode_window_with_draft(self, windows: np.ndarray, n_ctx: Optional[int] = None):
+        """(the target's cross K/V, the draft's) from one encode of the
+        target: the speculative path's front end."""
+        return self._encode_window(windows, n_ctx, with_draft=True)
 
     # ------------------------------------------------------------------
     def transcribe_pcm16(
@@ -633,11 +710,11 @@ class SttEngine:
             with self._count_lock:
                 self._inflight += 1
                 self._beam_inflight += beam_flight
-            self._request.stages = metrics.stages_ms
+            self._request.stages, self._request.spec = metrics.stages_ms, metrics.spec
             try:
                 results = self._transcribe_longform(audio, options, metrics)
             finally:
-                self._request.stages = None
+                self._request.stages = self._request.spec = None
                 with self._count_lock:
                     self._inflight -= 1
                     self._beam_inflight -= beam_flight
@@ -696,6 +773,7 @@ class SttEngine:
         window_audio: Optional[np.ndarray] = None,
         n_ctx: Optional[int] = None,
         xa_out: Optional[list] = None,
+        xa_kv_draft: Optional[dict] = None,
     ) -> Optional[DecodeResult]:
         """One decode attempt at one temperature for a single window: beam
         search at t = 0 with beam_size > 1, best-of sampling above t = 0
@@ -710,11 +788,16 @@ class SttEngine:
         beam t = 0 window to the beam gang; everything else replays the
         engine's own graph class from ``self.graphs``. ``window_audio`` (with ``xa_kv`` None) is the raw
         window, encoded here or, on the batcher's path, in the batcher's
-        admission tick; its cross K/V is appended to ``xa_out``."""
+        admission tick; its cross K/V is appended to ``xa_out``.
+        ``xa_kv_draft``, the draft's cross K/V, routes a greedy t = 0 window
+        through speculative decoding (``_decode_spec``)."""
         cfg = self.cfg
         ctx = cfg.n_text_ctx
         s = self.settings
         greedy = temperature <= 0.0 and beam_size <= 1
+        if xa_kv_draft is not None and greedy:
+            return self._decode_spec(xa_kv, xa_kv_draft, init_tokens, sample_begin, sot_index,
+                                     should_abort, sample_len)
         if xa_kv is not None:
             xa_f = xa_kv["k_scale" if "k_scale" in xa_kv else "k"].shape[-1]
         else:
@@ -769,6 +852,34 @@ class SttEngine:
                     cvalid_rows=self.settings.cvalid_rows,
                     sample_cap=sample_len if greedy else None, **common)
             return None if res is None else _host(res)
+
+    def _decode_spec(self, xa_kv, xa_kv_draft, init_tokens, sample_begin, sot_index,
+                     should_abort, sample_len) -> Optional[DecodeResult]:
+        """A greedy t = 0 window through ``decode_window_spec`` on the
+        engine's own graph class, as the JAX package routes it: the abort
+        polled once before the launch, the prefill at the prompt's own
+        bucket (no pinning) and ``max_len`` = prefill + ``sample_len``; every
+        window of one encoder width shares one graph class. Its counts go
+        to the request's ``PerformanceMetrics.spec``."""
+        if should_abort is not None and should_abort():
+            return None
+        ctx = self.cfg.n_text_ctx
+        tinit = np.full((1, ctx), self.ids.eot, np.int64)
+        tinit[0, : len(init_tokens)] = init_tokens
+        prefill_len = prompt_bucket(sample_begin)
+        stats = SpecStats()
+        with self._stage("decode"), self._device_lock, self._device.shared():
+            res = _host(decode_window_spec(
+                self.cfg, self.params, xa_kv, self.draft_cfg, self.draft_params, xa_kv_draft,
+                to_device(tinit, self.device), sample_begin, sot_index, self.ids,
+                self.suppress_mask, max_len=min(ctx, prefill_len + sample_len),
+                gamma=max(1, self.settings.spec_gamma), prefill_len=prefill_len,
+                self_dtype=self.self_dtype, graphs=self.graphs, stats=stats))
+        counts = getattr(self._request, "spec", None)
+        if counts is not None:
+            for name, n in vars(stats).items():
+                counts[name] = counts.get(name, 0) + n
+        return res
 
     def _wait_s(self) -> float:
         """How long a request waits on the batcher or the gang (the JAX
@@ -858,7 +969,18 @@ class SttEngine:
             window_dur_cs = int(round(remain / SAMPLE_RATE * 100))  # centisec
 
             n_ctx_w = self._window_ctx(remain, options.audio_ctx)
-            if seek == 0 and xa_kv_w0 is not None and xa_ctx_w0 == n_ctx_w:
+            # Speculative decoding: greedy with a draft, both models' cross
+            # K/V from one encode. Above parallel_requests = 1 only while the
+            # batcher of the window's width is idle (the request decodes
+            # alone); concurrent bursts ride the batcher.
+            pool = self._batchers.get(n_ctx_w or cfg.n_audio_ctx)
+            use_spec = (self.draft_params is not None and temperature0 <= 0.0
+                        and beam_size <= 1
+                        and (s.parallel_requests == 1 or pool is None or pool.is_idle()))
+            xa_kv_draft = None
+            if use_spec:
+                xa_kv, xa_kv_draft = self._encode_window_with_draft(window[None], n_ctx_w)
+            elif seek == 0 and xa_kv_w0 is not None and xa_ctx_w0 == n_ctx_w:
                 xa_kv = xa_kv_w0  # the detect pass encoded this very window
             elif temperature0 <= 0.0 and beam_size <= 1:
                 # Greedy: the encode waits for _decode_one, where the
@@ -893,7 +1015,7 @@ class SttEngine:
                     xa_kv, init_tokens, sample_begin, sot_index, t, beam_size, best_of,
                     should_abort=options.should_abort, sample_len=sample_len,
                     window_audio=window if xa_kv is None else None, n_ctx=n_ctx_w,
-                    xa_out=xa_holder,
+                    xa_out=xa_holder, xa_kv_draft=xa_kv_draft if t <= 0.0 else None,
                 )
                 if xa_kv is None and xa_holder:
                     xa_kv = xa_holder[0]  # encoded by _decode_one or the batcher

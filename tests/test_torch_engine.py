@@ -16,8 +16,8 @@ the int8 and int4 compute types against the reference's own quantized
 engine. The fallback ladder is held with both engines' ``_decode_one``
 scripted to the same results: the rungs tried, the result chosen and the
 prompt reset above t = 0.5. The port refuses what it has not ported
-(no card for ``device="auto"``, ``draft_model``, a mesh, beam sizes above
-32) at construction."""
+(no card for ``device="auto"``, a mesh, beam sizes above 32) at
+construction, and a ``draft_model`` of another encoder width."""
 
 import dataclasses
 
@@ -275,10 +275,18 @@ def test_refused_settings(params):
             engine.SttEngine(Settings(), model_name="test", params=model)
         with pytest.raises(RuntimeError, match="no CUDA device"):
             engine.SttEngine(Settings(device="cuda"), model_name="test", params=model)
-    for refused, match in ((dict(draft_model="tiny"), "item 14"),
-                           (dict(mesh_shape="2x4"), "item 15")):
-        with pytest.raises(NotImplementedError, match=match):
-            engine.SttEngine(Settings(device="cpu", **refused), model_name="test", params=model)
+    with pytest.raises(NotImplementedError, match="item 15"):
+        engine.SttEngine(Settings(device="cpu", mesh_shape="2x4"), model_name="test",
+                         params=model)
+    # A draft loads (its own seed under random_init), quantized and fused as
+    # the target; one of another encoder width is refused.
+    eng = engine.SttEngine(Settings(device="cpu", draft_model="test", compute_type="int8"),
+                           model_name="test", params=model, random_init=True)
+    assert eng.draft_cfg == whisper.config_for("test")
+    assert eng.draft_params.decoder.blocks[0].attn.qkv.w_q is not None
+    with pytest.raises(ValueError, match="encoder width 384 != target 64"):
+        engine.SttEngine(Settings(device="cpu", draft_model="tiny"), model_name="test",
+                         params=model)
     with pytest.raises(ValueError, match="beam_size 33"):
         engine.SttEngine(Settings(device="cpu", beam_size=33), model_name="test", params=model)
     eng = engine.SttEngine(Settings(device="cpu", **RELAXED), model_name="test", params=model)

@@ -21,6 +21,7 @@ MODULES = [
     "sentiric_stt_whisper_service_tpu_torch.models.beam",
     "sentiric_stt_whisper_service_tpu_torch.models.params",
     "sentiric_stt_whisper_service_tpu_torch.models.silero_vad",
+    "sentiric_stt_whisper_service_tpu_torch.models.speculative",
     "sentiric_stt_whisper_service_tpu_torch.native",
     "sentiric_stt_whisper_service_tpu_torch.ops",
     "sentiric_stt_whisper_service_tpu_torch.ops.beam_attention",
@@ -57,6 +58,7 @@ MODULES = [
     "sentiric_stt_whisper_service_tpu_torch.serving.suts_logging",
     "sentiric_stt_whisper_service_tpu_torch.cli",
     "sentiric_stt_whisper_service_tpu_torch.cli.main",
+    "sentiric_stt_whisper_service_tpu_torch.cli.convert",
 ]
 
 

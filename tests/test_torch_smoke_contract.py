@@ -3,7 +3,7 @@ row of the ``kernels`` JSON line each) has every launch counter of
 ``kernels.LAUNCHES``, each with a source in ``csrc/`` and the line of the
 ``pl.pallas_call`` it replaces, and its ``--profile`` name list covers every
 ``__global__`` function of ``csrc/``, so the breakdown drops none. Its
-docstring numbers phases 1 to 10, phase 8's wire chunks carry the WAV header
+docstring numbers phases 1 to 11, phase 8's wire chunks carry the WAV header
 and odd byte counts, and the probe's and the serving phase's constants hold
 what they promise.
 chip_smoke.py's top level is stdlib only, so it imports here without a card."""
@@ -42,12 +42,12 @@ def test_profile_names_cover_every_kernel_function():
 
 
 def test_docstring_numbers_every_phase():
-    """The module docstring describes phases 1 to 10, in order (9: serving,
-    10: the int8 attention probe)."""
+    """The module docstring describes phases 1 to 11, in order (9: serving,
+    10: the int8 attention probe, 11: speculative decoding)."""
     doc = _smoke().__doc__
     numbers = [int(n) for n in re.findall(r"^(\d+)\. ", doc, flags=re.M)]
-    assert numbers == list(range(1, 11))
-    assert "probe_flash_int8" in doc and "serving" in doc
+    assert numbers == list(range(1, 12))
+    assert "probe_flash_int8" in doc and "serving" in doc and "spec_turbo" in doc
 
 
 def test_stream_chunks_carry_the_header_and_odd_counts():
