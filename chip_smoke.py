@@ -200,7 +200,45 @@ JAX package) and fails with a non-zero exit on the first phase that fails:
    6's greedy settings, ``parallel_requests=1``, a random draft) after
    ``warmup()`` on the 12 s request (path ``engine_spec``): its wall beside
    phase 6's greedy engine's, and ``PerformanceMetrics.spec`` must count
-   rounds.
+   rounds;
+12. training and the mesh (``runtime/training.py``, ``parallel/``): (a)
+   large-v3 at full width, bf16 weights (not int8), random init made
+   trainable (``training_copy``); a batch of two 30 s synthetic windows,
+   their mel from K1, [2, 128] token ids from a seeded ``torch.Generator``,
+   the loss mask 0 on the 3 prompt positions. Before any step, on the
+   weights of ``TRAIN_GRAD_SEEDS`` seeds, ``loss_and_grads`` through K2
+   (``FlashAttention``: K2 forward, plain backward) against the plain path
+   (``attention_reference`` under autograd) on the same batch: per
+   parameter max |dg| / max |g|, the encoder's attention q/k/v leaves
+   within ``TRAIN_GRAD_TOL_ATTN`` and the rest within ``TRAIN_GRAD_TOL``, no
+   gradient all-zero or non-finite in one and not the other, every encoder
+   ``attn.q/k/v`` weight's nonzero, and K2 launched once per encoder layer
+   (32) in the forward pass; on the first seed a planted fault (K2's
+   backward without its rowsum term) must exceed the q/k/v bound. Then
+   (path ``training``) on the first seed's weights the mel and five
+   ``train_step``s on the batch at lr 1e-3 (the default 1e-5 moves no bf16
+   weight): a finite loss at every step, falling from the first to the
+   fifth, K1 and 32 K2 launches a step; the step's wall (median of steps
+   3-5), target tokens/s and audio-s/s, the peak device memory and the
+   AdamW state's bytes. (b) tensor parallelism on the one card: large-v3's
+   width at 4 + 4 layers, two processes of this script (``--tp-worker``)
+   joined over gloo (NCCL takes one rank per card) on a "1x2" mesh, 10
+   heads each; each runs ``loss_and_grads``, the teacher-forced logits of
+   the training tokens, and greedy 16-token ``decode_window``s over an int4
+   slab (K4) and an int8 slab (K3) with its heads (path ``training_tp``,
+   rank 0's counts), held against the same model unsharded in this process
+   on the same weights: the loss within ``TP_LOSS_RTOL``, each gradient
+   shard within ``TP_GRAD_TOL`` of its block of the unsharded gradient, the
+   logits as phases 4-5 hold theirs (``drift_check``); K3 and K4 against
+   their plain versions on their last call's inputs in the rank's decodes
+   (2 windows x 10 heads) at phase 3's tolerance; each decode equal to the
+   unsharded one, or where a window differs the unsharded top-two margin
+   at its first differing token within twice the largest difference of the
+   two models' teacher-forced logits over the unsharded decode. The phase
+   prints its wall.
+
+``--tp-worker RANK PORT DIR`` is one rank of phase 12's tensor-parallel
+leg (started by the phase; its inputs and outputs in ``DIR``).
 
 ``--kernels-of DIR`` runs phases 1–3 only, with the package of the checkout
 in ``DIR``, and ends with the checks as one JSON list; ``--compare DIR`` runs
@@ -211,7 +249,8 @@ commit on one card.
 Each path (greedy int4, greedy int8, greedy bf16, beam 5, engine greedy,
 engine beam, concurrent greedy, concurrent greedy int8, concurrent beam,
 the concurrent pools' and gang's own, phase 8's streams, serving, the
-probe, and phase 11's greedy, speculative and engine runs) has its own launch counts, set to 0 just before its (first) run and read just after it; each
+probe, phase 11's greedy, speculative and engine runs, and phase 12's
+training steps and tp ranks) has its own launch counts, set to 0 just before its (first) run and read just after it; each
 run must launch every kernel of its path. A graph replay adds the launches
 its capture counted. ``--profile`` runs phase 3, then replaces phases 4–5
 with a breakdown of both slices (the greedy one with the int4 and the int8
@@ -255,6 +294,28 @@ BEAM_STEP_CHECK = 8  # beam steps held against a teacher-forced prefill
 SPEC_GAMMA = 4  # phase 11: draft tokens per speculative round
 WATCHDOG_S = 1140  # the run's limit, under the 1200 s it is given
 P1_SHAPE = (16, 20, 1500, 64)  # the int8 attention probe's default (BENCH_B/H/L/D)
+TRAIN_B, TRAIN_T, TRAIN_PROMPT = 2, 128, 3  # phase 12: windows, tokens, masked prompt positions
+TRAIN_STEPS = 5
+TRAIN_LR = 1e-3  # at the default 1e-5 no bf16 weight moves (its step is under half an ulp)
+# Phase 12: per parameter max |dg| / max |g| of K2's gradient against the
+# plain path's, on the weights of TRAIN_GRAD_SEEDS seeds. Both sides are the
+# same bf16 computation up to ~1 bf16 ulp (0.4 %) in the attention outputs,
+# carried through the layers. The encoder's attention q/k/v leaves
+# (ATTN_LEAF), whose gradients FlashAttention's backward gives, have their
+# own bound: on an H100 the three seeds read at most 3.1e-2 there, and a
+# backward without its rowsum term 3.8e2, which the phase requires above the
+# bound. The rest, led by decoder self-attention q and k (their gradients
+# come from cancellation), read at most 0.100.
+TRAIN_GRAD_SEEDS = 3
+ATTN_LEAF = re.compile(r"encoder\.blocks\.\d+\.attn\.[qkv]\.[wb]")
+TRAIN_GRAD_TOL_ATTN = 0.1
+TRAIN_GRAD_TOL = 0.3
+# ... and of a tp shard's against its block of the unsharded one (the tp
+# partial sums' order).
+TP_GRAD_TOL = 0.1
+TP_LOSS_RTOL = 1e-2
+TP_LAYERS = 4  # phase 12 (b): encoder and decoder layers at large-v3's width
+TP_TOKENS = 16  # phase 12 (b): the greedy decodes' budget
 
 # The card's peaks (NVIDIA H100 SXM data sheet, dense, at 700 W): memory
 # bytes/s and operations/s by the type of a kernel's inputs.
@@ -859,6 +920,11 @@ def main() -> int:
     except ImportError as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
+    args = sys.argv[1:]
+    if "--tp-worker" in args:  # phase 12's tp rank: its device is the phase's
+        i = args.index("--tp-worker")
+        sys.path.insert(0, str(ROOT))
+        return tp_worker(torch, int(args[i + 1]), int(args[i + 2]), Path(args[i + 3]))
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false: no CUDA device", file=sys.stderr)
         return 1
@@ -866,7 +932,6 @@ def main() -> int:
     # go out as they are printed, so none is lost when it does.
     sys.stdout.reconfigure(line_buffering=True)
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
-    args = sys.argv[1:]
     if "--compare" in args:
         return compare(Path(args[args.index("--compare") + 1]).resolve())
     kernels_of = "--kernels-of" in args
@@ -1219,6 +1284,10 @@ def run(torch, np, profile: bool = False, kernels_only: bool = False) -> int:
     print(f"== 11. speculative decoding: large-v3 target, large-v3-turbo draft (seed "
           f"{SEED + 12}), int4 slabs, fp8 self caches, gamma {SPEC_GAMMA} [{card}]")
     spec_phase(torch, np, model, paths, card, drift, requests, sequential)
+
+    print(f"== 12. training: large-v3 bf16, {TRAIN_B} x 30 s windows, {TRAIN_T} tokens, "
+          f"{TRAIN_STEPS} AdamW steps; tp = 2 on the one card over gloo [{card}]")
+    training_phase(torch, np, paths, card)
 
     kernels_json = []
     for name, (src, replaces, path) in SOURCES.items():
@@ -2732,6 +2801,475 @@ def spec_phase(torch, np, model, paths, card, drift, requests, sequential) -> No
     eng.shutdown()
     del eng, draft, graphs
     torch.cuda.empty_cache()
+
+
+def training_batch(torch, np, cfg):
+    """Phase 12's batch: two 30 s windows (their mel made by the returned
+    function, K1), token ids from a seeded generator, the loss mask 0 on the
+    prompt positions."""
+    from sentiric_stt_whisper_service_tpu_torch.ops import compute_log_mel, pad_or_trim
+
+    rng = np.random.default_rng(SEED + 13)
+    audio = torch.from_numpy(np.stack([pad_or_trim(speech_like(rng, 30.0))
+                                       for _ in range(TRAIN_B)])).cuda()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 13)
+    tokens = torch.randint(0, cfg.n_vocab, (TRAIN_B, TRAIN_T), generator=g, device="cuda")
+    mask = torch.ones((TRAIN_B, TRAIN_T - 1), device="cuda")
+    mask[:, :TRAIN_PROMPT] = 0.0
+    return (lambda: compute_log_mel(audio, n_mels=cfg.n_mels, dtype=cfg.dtype)), tokens, mask
+
+
+def grad_errors(torch, got: dict, want: dict, blocks=None) -> dict:
+    """Per parameter max |got - want| / max |want| (``want`` cut to each
+    name's block by ``blocks``); fails where a gradient is all-zero or
+    non-finite on one side only."""
+    rels = {}
+    for name, g in got.items():
+        w = want[name] if blocks is None else blocks[name].local(want[name])
+        a, b = g.float(), w.float()
+        flags = torch.stack([torch.isfinite(a).all(), torch.isfinite(b).all(),
+                             (a == 0).all(), (b == 0).all()]).tolist()
+        require(flags[0] == flags[1] and flags[2] == flags[3],
+                f"gradient of {name}: finite {flags[:2]}, all-zero {flags[2:]}")
+        rels[name] = (a - b).abs().max() / b.abs().max().clamp(min=1e-30)
+    return dict(zip(rels, torch.stack(list(rels.values())).tolist()))
+
+
+def worst_by_group(rels: dict) -> dict:
+    """The largest of ``rels`` (a ``grad_errors`` result) and its parameter,
+    for the encoder's attention q/k/v leaves ("attention": FlashAttention's
+    backward gives their gradients) and for the rest ("rest")."""
+    groups = {"attention": [n for n in rels if ATTN_LEAF.fullmatch(n)]}
+    groups["rest"] = [n for n in rels if n not in set(groups["attention"])]
+    return {k: max((rels[n], n) for n in names) for k, names in groups.items()}
+
+
+def attention_variants(torch):
+    """The two stand-ins for ``whisper.FlashAttention`` in phase 12 (a): the
+    plain path (``attention_reference`` under autograd), and a planted fault
+    (K2 forward, a backward without its rowsum term: ds = p * dp)."""
+    from sentiric_stt_whisper_service_tpu_torch.ops.flash_attention import (
+        attention_reference,
+        flash_attention,
+    )
+
+    class Plain:
+        apply = staticmethod(attention_reference)
+
+    class NoRowsum(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v):
+            ctx.save_for_backward(q, k, v)
+            return flash_attention(q, k, v)
+
+        @staticmethod
+        def backward(ctx, grad_out):
+            q, k, v = (t.float() for t in ctx.saved_tensors)
+            g = grad_out.float()
+            p = torch.softmax(q @ k.transpose(-1, -2), dim=-1)
+            ds = p * (g @ v.transpose(-1, -2))
+            return tuple(t.to(grad_out.dtype) for t in (
+                ds @ k, ds.transpose(-1, -2) @ q, p.transpose(-1, -2) @ g))
+
+    return Plain, NoRowsum
+
+
+def k2_gradient_check(torch, cfg, model, mel, tokens, mask, fault: bool):
+    """K2's gradient (``FlashAttention``) against the plain path's on
+    ``model``: returns (``worst_by_group`` of K2's, of the planted fault's
+    with ``fault`` else None, K2's forward launches, the two losses, every
+    ``grad_errors`` of K2's)."""
+    from sentiric_stt_whisper_service_tpu_torch import kernels
+    from sentiric_stt_whisper_service_tpu_torch.models import whisper as whisper_mod
+    from sentiric_stt_whisper_service_tpu_torch.runtime import training
+
+    plain, no_rowsum = attention_variants(torch)
+    flash = whisper_mod.FlashAttention
+
+    def grads_with(attention):
+        whisper_mod.FlashAttention = attention
+        try:
+            return training.loss_and_grads(cfg, model, mel, tokens, mask)
+        finally:
+            whisper_mod.FlashAttention = flash
+
+    loss_plain, grads_plain = grads_with(plain)
+    kernels.reset_launch_counts()
+    loss_k2, grads = grads_with(flash)
+    k2_forward = kernels.LAUNCHES["flash_attention"]
+    qkv = [f"encoder.blocks.{i}.attn.{w}.w" for i in range(cfg.n_audio_layer) for w in "qkv"]
+    zero = [n for n in qkv if not bool(grads[n].abs().max() > 0)]
+    require(not zero, f"K2 gradient: encoder attention weights without a gradient: {zero}")
+    rels = grad_errors(torch, grads, grads_plain)
+    del grads
+    faulty = None
+    if fault:
+        faulty = worst_by_group(grad_errors(torch, grads_with(no_rowsum)[1], grads_plain))
+    model.zero_grad(set_to_none=True)
+    return worst_by_group(rels), faulty, k2_forward, (float(loss_k2), float(loss_plain)), rels
+
+
+def training_phase(torch, np, paths, card) -> None:
+    """Phase 12: training and the mesh (see the module docstring)."""
+    import dataclasses
+    import os
+    import socket
+    import tempfile
+
+    from sentiric_stt_whisper_service_tpu_torch import kernels
+    from sentiric_stt_whisper_service_tpu_torch.models import config_for, init_params
+    from sentiric_stt_whisper_service_tpu_torch.runtime import training
+
+    t_phase = time.perf_counter()
+    held = torch.cuda.memory_allocated()  # the earlier phases' models and graphs
+    cfg = config_for("large-v3")
+    g = torch.Generator(device="cuda")
+    make_mel, tokens, mask = training_batch(torch, np, cfg)
+    mel = make_mel()
+
+    # K2's gradient path against the plain path's, before any step, on the
+    # weights of TRAIN_GRAD_SEEDS seeds; the planted fault on the first.
+    for i in range(TRAIN_GRAD_SEEDS):
+        g.manual_seed(SEED + i)
+        model = training.training_copy(init_params(cfg, g))
+        worst, faulty, k2_forward, losses, rels = k2_gradient_check(
+            torch, cfg, model, mel, tokens, mask, fault=i == 0)
+        if i == 0:  # the main path trains the first seed's weights
+            trained, n_params = model, sum(p.numel() for p in model.parameters())
+            print(f"  (a) {n_params / 1e9:.3f} B parameters, bf16; mel {list(mel.shape)}, "
+                  f"tokens {list(tokens.shape)}, {int(mask.sum())} target tokens")
+        print(f"  (a) seed {SEED + i}: K2 gradient vs the plain path's, max |dg| / max |g| "
+              f"over {len(rels)} parameters: median {statistics.median(rels.values()):.2e}; "
+              f"encoder attention q/k/v largest {worst['attention'][0]:.3e} "
+              f"({worst['attention'][1]}, bound {TRAIN_GRAD_TOL_ATTN}), the rest largest "
+              f"{worst['rest'][0]:.3e} ({worst['rest'][1]}, bound {TRAIN_GRAD_TOL}); loss "
+              f"{losses[0]:.5f} vs {losses[1]:.5f}; K2 launched {k2_forward} times in the "
+              f"forward pass")
+        require(worst["attention"][0] <= TRAIN_GRAD_TOL_ATTN,
+                f"K2 gradient, seed {SEED + i}: {worst['attention'][1]} off by "
+                f"{worst['attention'][0]:.3g} of its largest |g|")
+        require(worst["rest"][0] <= TRAIN_GRAD_TOL,
+                f"K2 gradient, seed {SEED + i}: {worst['rest'][1]} off by "
+                f"{worst['rest'][0]:.3g} of its largest |g|")
+        require(k2_forward == cfg.n_audio_layer,
+                f"K2 launched {k2_forward} times in a training forward pass, not "
+                f"{cfg.n_audio_layer}")
+        if faulty is not None:
+            print(f"  (a) seed {SEED + i}, the planted fault (K2's backward without its rowsum "
+                  f"term): encoder attention q/k/v largest {faulty['attention'][0]:.3e} "
+                  f"({faulty['attention'][1]}), the rest largest {faulty['rest'][0]:.3e} "
+                  f"({faulty['rest'][1]})")
+            require(faulty["attention"][0] > TRAIN_GRAD_TOL_ATTN,
+                    f"the planted fault passes the K2 gradient check: "
+                    f"{faulty['attention'][0]:.3g} <= {TRAIN_GRAD_TOL_ATTN}")
+    model = trained
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # The main path: the mel (K1) and five AdamW steps.
+    opt = training.make_optimizer(model, TRAIN_LR)
+    state = training.TrainState(model, opt.state, 0)
+    kernels.reset_launch_counts()
+    mel = make_mel()
+    losses, walls = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, loss = training.train_step(cfg, opt, state, mel, tokens, mask)
+        losses.append(float(loss))
+        walls.append(time.perf_counter() - t)
+    paths["training"] = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    moments = sum(v.numel() * v.element_size() for st in state.opt_state.values()
+                  for v in st.values() if torch.is_tensor(v) and v.dim())
+    wall = statistics.median(walls[2:])
+    targets = int(mask.sum())
+    print(f"  (a) losses {', '.join(f'{x:.5f}' for x in losses)} at lr {TRAIN_LR}; step walls "
+          f"{', '.join(f'{w:.4f}' for w in walls)} s [{card}]")
+    print(f"  (a) step wall {wall:.4f} s (median of steps 3-5): {targets / wall:.1f} target "
+          f"tokens/s, {TRAIN_B * 30.0 / wall:.1f} audio-s/s; peak device memory "
+          f"{peak / 2**30:.2f} GiB, {(peak - held) / 2**30:.2f} GiB above the "
+          f"{held / 2**30:.2f} GiB the earlier phases hold; AdamW state "
+          f"{moments / 2**30:.2f} GiB, weights "
+          f"{n_params * 2 / 2**30:.2f} GiB [{card}]; launches {paths['training']}")
+    require(all(math.isfinite(x) for x in losses), f"training: a loss is not finite: {losses}")
+    require(losses[-1] < losses[0], f"training: the loss did not fall: {losses}")
+    need_launched(paths, "training", ("log_mel", "flash_attention"),
+                  absent=("decode_attention", "decode_attention_i4", "beam_attention",
+                          "beam_cross_attention", "flash_q8"))
+    require(paths["training"]["flash_attention"] == TRAIN_STEPS * cfg.n_audio_layer,
+            f"training: K2 launched {paths['training']['flash_attention']} times, not "
+            f"{cfg.n_audio_layer} a step")
+    training_breakdown(torch, cfg, opt, state, mel, tokens, mask, card)
+    del state, model, opt, mel, trained
+    torch.cuda.empty_cache()
+
+    # (b) tp = 2 on the one card: two processes over gloo against this one.
+    cfg_r = dataclasses.replace(cfg, n_audio_layer=TP_LAYERS, n_text_layer=TP_LAYERS)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        g.manual_seed(SEED + 14)
+        full = training.training_copy(init_params(cfg_r, g))
+        mel = make_mel()
+        loss, grads = training.loss_and_grads(cfg_r, full, mel, tokens, mask)
+        with torch.inference_mode():
+            logits, decodes = tp_forward(torch, cfg_r, full, mel, tokens)
+        torch.save({"mel": mel, "tokens": tokens, "mask": mask, "loss": loss,
+                    "rows": {form: d["rows"] for form, d in decodes.items()},
+                    "grads": {n: t.detach().cpu() for n, t in grads.items()}}, tmp / "ref.pt")
+        del full, grads
+        torch.cuda.empty_cache()
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--tp-worker",
+                                   str(rank), str(port), str(tmp)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                                  env=dict(os.environ, OMP_NUM_THREADS="4"))
+                 for rank in range(2)]
+        try:
+            logs = [p.communicate(timeout=400)[0] for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+        for rank, (p, log) in enumerate(zip(procs, logs)):
+            require(p.returncode == 0, f"tp worker {rank} exited {p.returncode}:\n{log[-4000:]}")
+        outs = [torch.load(tmp / f"rank{r}.pt") for r in range(2)]
+    print(f"  (b) two tp ranks (gloo, one card): {time.perf_counter() - t0:.1f} s, process "
+          f"start included")
+    for rank, out in enumerate(outs):
+        rel = abs(out["loss"] - float(loss)) / abs(float(loss))
+        worst = max(out["grad_rels"], key=out["grad_rels"].get)
+        print(f"  (b) rank {rank}: {out['heads']} heads; loss {out['loss']:.5f} vs unsharded "
+              f"{float(loss):.5f} (rel {rel:.2e}, bound {TP_LOSS_RTOL}); gradient shards: max "
+              f"|dg| / max |g| median {statistics.median(out['grad_rels'].values()):.2e}, "
+              f"largest {out['grad_rels'][worst]:.2e} ({worst}, bound {TP_GRAD_TOL}); "
+              f"loss_and_grads {out['step_s']:.3f} s [{card}]")
+        require(rel <= TP_LOSS_RTOL, f"tp rank {rank}: loss off by {rel:.3g}")
+        require(out["grad_rels"][worst] <= TP_GRAD_TOL,
+                f"tp rank {rank}: gradient of {worst} off by {out['grad_rels'][worst]:.3g}")
+        drift_check(f"(b) rank {rank} teacher-forced logits vs unsharded", logits,
+                    out["logits"].to(logits.device), torch)
+        for name, (err, tol, shape) in out["kernel_checks"].items():
+            print(f"  (b) rank {rank} {name} at the rank's shapes {shape} (its last call in "
+                  f"the decode): max_abs_err {err:.3e} against its plain version (tol "
+                  f"{tol:.2e}: 2 bf16 steps at max |plain|, as phase 3)")
+            require(err <= tol, f"tp rank {rank}: {name} max_abs_err {err:.3e} > tol {tol:.2e}")
+        for form, ref in decodes.items():
+            tp_decode_check(torch, rank, form, ref, out, card)
+    paths["training_tp"] = outs[0]["launches"]
+    print(f"  (b) launches (rank 0) {paths['training_tp']}")
+    need_launched(paths, "training_tp", ("flash_attention", "decode_attention",
+                                         "decode_attention_i4"))
+    print(f"  phase 12 wall {time.perf_counter() - t_phase:.1f} s [{card}]")
+
+
+def tp_decode_check(torch, rank, form, ref, out, card) -> None:
+    """A tp rank's greedy decode against the unsharded one (``ref``): equal,
+    or in each window that differs the unsharded logits' top-two margin at
+    the first differing token within twice the largest difference of the
+    two models' teacher-forced logits over the unsharded decode (``drift``):
+    a flip that the models' difference explains."""
+    got, want = out[f"tokens_{form}"], ref["tokens"]
+    forced = out[f"forced_{form}"]
+    require(bool(torch.isfinite(forced).all()), f"tp rank {rank}: {form} logits not finite")
+    drift = (forced - ref["forced"]).abs().max().item()
+    same = int((got == want).all(0).long().cumprod(0).sum())
+    print(f"  (b) rank {rank} greedy, {form} slab: the first {same} of {TP_TOKENS} tokens "
+          f"equal the unsharded decode's in every window; teacher-forced drift {drift:.4f}; "
+          f"{out[f'decode_{form}_s']:.3f} s (unsharded {ref['s']:.3f} s) [{card}]")
+    for b in range(got.shape[0]):
+        differ = (got[b] != want[b]).nonzero()
+        if not differ.numel():
+            continue
+        j = int(differ[0, 0])
+        margin = ref["margins"][b, j].item()
+        print(f"  (b) rank {rank} greedy, {form} slab, window {b}: differs from token {j}, "
+              f"where the unsharded top-two margin is {margin:.4f} (bound twice the drift, "
+              f"{2 * drift:.4f})")
+        require(margin <= 2 * drift,
+                f"tp rank {rank}: the {form} decode of window {b} differs at token {j} with a "
+                f"margin {margin:.4f} above twice the drift {drift:.4f}")
+
+
+def training_breakdown(torch, cfg, opt, state, mel, tokens, mask, card) -> None:
+    """Where a training step's time goes (after the main path's counts are
+    read): one step timed in its parts (forward, backward, AdamW; the host
+    clock with a synchronise after each), then one under ``torch.profiler``:
+    device busy against the wall (the idle share) and the kernels that take
+    most of it."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    from sentiric_stt_whisper_service_tpu_torch.runtime import training
+
+    model = state.params
+    marks = [time.perf_counter()]
+    loss = training.loss_fn(cfg, model, mel, tokens, mask)
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    loss.backward()
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    opt.step()
+    opt.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    parts = [1e3 * (b - a) for a, b in zip(marks, marks[1:])]
+    print(f"  (a) one step in parts: forward {parts[0]:.1f} ms, backward {parts[1]:.1f} ms, "
+          f"AdamW {parts[2]:.1f} ms [{card}]")
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        training.train_step(cfg, opt, state, mel, tokens, mask)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t)
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            t_us, count = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (t_us + e.time_range.elapsed_us(), count + 1)
+    busy = sum(t for t, _ in by_name.values()) / 1e3
+    print(f"  (a) one step under the profiler: wall {wall:.1f} ms, device busy {busy:.1f} ms "
+          f"in {sum(c for _, c in by_name.values())} kernels, idle {100 * (1 - busy / wall):.1f} % "
+          f"[{card}]; the top kernels:")
+    for name, (t_us, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
+        print(f"    {t_us / 1e3:8.2f} ms {count:6d}x  {name[:100]}")
+
+
+def tp_forward(torch, cfg, model, mel, tokens, rows=None):
+    """Inference of phase 12 (b)'s model, sharded or not: the teacher-forced
+    logits of the training tokens (plain attention, a fresh cache), and for
+    an int4 slab (K4) and an int8 slab (K3) a greedy window's decode: its
+    sampled tokens, token rows and time, the teacher-forced logits that pick
+    the sampled positions of ``rows[form]`` (default: its own rows) and
+    their processed top-two margins."""
+    from sentiric_stt_whisper_service_tpu_torch.models import (
+        TokenIds,
+        build_suppress_mask,
+        decode_window,
+    )
+    from sentiric_stt_whisper_service_tpu_torch.models.sampling import logit_processor
+    from sentiric_stt_whisper_service_tpu_torch.models.whisper import (
+        decoder_apply,
+        encoder_apply,
+        init_kv_cache,
+        precompute_xa_kv,
+        text_heads,
+    )
+    from sentiric_stt_whisper_service_tpu_torch.tokenizer import fallback_tokenizer
+
+    dev = mel.device
+    heads = text_heads(cfg, model)
+    xa = encoder_apply(cfg, model, mel)
+    kv = init_kv_cache(cfg, TRAIN_B, TRAIN_T, device=dev, n_head=heads)
+    logits, _ = decoder_apply(cfg, model, tokens, 0, kv, precompute_xa_kv(cfg, model, xa))
+    tok = fallback_tokenizer(cfg.n_vocab)
+    ids = TokenIds.from_tokenizer(tok)
+    sup = torch.from_numpy(build_suppress_mask(cfg.n_vocab, ids, tok.non_speech_tokens)).to(dev)
+    process = logit_processor(cfg.n_vocab, ids, sup, True)
+    sot = tok.sot_sequence("en")
+    sb = len(sot)
+    tinit = torch.full((TRAIN_B, cfg.n_text_ctx), ids.eot, dtype=torch.int64, device=dev)
+    tinit[:, :sb] = torch.tensor(sot, device=dev)
+    decodes = {}
+    for form, bits in (("int4", 4), ("int8", 8)):
+        slab = precompute_xa_kv(cfg, model, xa, bits)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = decode_window(cfg, model, slab, tinit, sb, 0, ids, sup, max_len=sb + TP_TOKENS)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        forced_on = res.tokens if rows is None else rows[form].to(dev)
+        kv = init_kv_cache(cfg, TRAIN_B, sb + TP_TOKENS, device=dev, n_head=heads)
+        forced, _ = decoder_apply(cfg, model, forced_on[:, :sb + TP_TOKENS - 1], 0, kv, slab)
+        forced = forced[:, sb - 1:].float()
+        margins = torch.stack([
+            process(forced[:, j], forced_on, torch.tensor([sb + j], device=dev),
+                    torch.tensor([sb], device=dev)).topk(2).values.diff(dim=-1)[:, 0].neg()
+            for j in range(TP_TOKENS)], dim=1)
+        decodes[form] = {"tokens": res.tokens[:, sb:sb + TP_TOKENS].cpu(), "rows": res.tokens,
+                         "s": seconds, "forced": forced.cpu(), "margins": margins.cpu()}
+    return logits.float(), decodes
+
+
+def tp_worker(torch, rank: int, port: int, tmp: Path) -> int:
+    """``--tp-worker``: one rank of phase 12 (b) (see ``training_phase``).
+    Besides the phase's readings, K3 and K4 against their plain versions on
+    their last call's inputs in this rank's decodes (its heads and rows)."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from sentiric_stt_whisper_service_tpu_torch import kernels, parallel
+    from sentiric_stt_whisper_service_tpu_torch.models import config_for, init_params
+    from sentiric_stt_whisper_service_tpu_torch.models import whisper as whisper_mod
+    from sentiric_stt_whisper_service_tpu_torch.models.whisper import text_heads
+    from sentiric_stt_whisper_service_tpu_torch.ops import decode_attention as da
+    from sentiric_stt_whisper_service_tpu_torch.ops.quant import unpack_nibbles_i8
+    from sentiric_stt_whisper_service_tpu_torch.runtime import training
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ref = torch.load(tmp / "ref.pt")
+    parallel.initialize_distributed(f"127.0.0.1:{port}", 2, rank, backend="gloo")
+    mesh = parallel.make_mesh("1x2")
+    cfg = dataclasses.replace(config_for("large-v3"), n_audio_layer=TP_LAYERS,
+                              n_text_layer=TP_LAYERS)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 14)
+    full = training.training_copy(init_params(cfg, g))
+    blocks = parallel.param_shardings(mesh, full)
+    model = parallel.shard_params(mesh, full)
+    del full
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    loss, grads = training.loss_and_grads(cfg, model, ref["mel"], ref["tokens"], ref["mask"])
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t
+    rels = grad_errors(torch, grads, ref["grads"], blocks)
+
+    last = {}  # kernel -> its last call's (q, slabs), q copied
+
+    def keep(name, fn):
+        def call(q, *slabs, **kw):
+            last[name] = (q.clone(), slabs, kw)
+            return fn(q, *slabs, **kw)
+        return call
+
+    k3, k4 = whisper_mod.decode_attention, whisper_mod.decode_attention_i4
+    whisper_mod.decode_attention = keep("K3 decode_attention int8", k3)
+    whisper_mod.decode_attention_i4 = keep("K4 decode_attention_i4", k4)
+    try:
+        with torch.inference_mode():
+            logits, decodes = tp_forward(torch, cfg, model, ref["mel"], ref["tokens"], ref["rows"])
+    finally:
+        whisper_mod.decode_attention, whisper_mod.decode_attention_i4 = k3, k4
+    launches = dict(kernels.LAUNCHES)
+    checks = {}
+    for name, (q, slabs, kw) in last.items():
+        if name.startswith("K4"):
+            got = k4(q, *slabs, **kw)
+            k, v, ks, vs = slabs
+            slabs = (unpack_nibbles_i8(k), unpack_nibbles_i8(v), ks, vs)
+        else:
+            got = k3(q, *slabs, **kw)
+        want = da.decode_attention_reference(q, *slabs, **kw)
+        err = (got.float() - want.float()).abs().max().item()
+        checks[name] = (err, 2**-6 * want.float().abs().max().item(), tuple(q.shape))
+    out = {"loss": float(loss), "grad_rels": rels, "logits": logits.cpu(),
+           "heads": text_heads(cfg, model), "step_s": step_s, "launches": launches,
+           "kernel_checks": checks}
+    for form, d in decodes.items():
+        out.update({f"tokens_{form}": d["tokens"], f"decode_{form}_s": d["s"],
+                    f"forced_{form}": d["forced"]})
+    torch.save(out, tmp / f"rank{rank}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
 
 
 def probe_phase(torch, paths, card) -> None:

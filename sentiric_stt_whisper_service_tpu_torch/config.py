@@ -14,8 +14,9 @@ What the port reads differently:
   * ``flash_attn``: the encoder's attention always runs the K2 kernel on the
     card; ``FLASH_ATTN=0`` has no effect there (the engine says so in its
     log).
-  * a ``mesh_shape`` other than ``"1"`` is not ported yet; the engine
-    refuses it.
+  * a ``mesh_shape`` other than ``"1"`` is not ported yet for the engine
+    (ROADMAP queue 1 item 15b); the engine refuses it. ``parallel/`` shards
+    a model for training and ``decode_window``.
 """
 
 from __future__ import annotations

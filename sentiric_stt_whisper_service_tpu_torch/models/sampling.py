@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from .graphs import DecodeGraphs, run_window, to_host, window_loop
-from .whisper import WhisperConfig, decoder_apply, decoder_step, init_kv_cache
+from .whisper import WhisperConfig, decoder_apply, decoder_step, init_kv_cache, text_heads
 
 # Steps between two reads of the device when nothing is polled: each read
 # stalls the host once, and a window whose rows all finish mid-chunk runs
@@ -280,7 +280,12 @@ def decode_window(
 
     On CUDA the step replays as a CUDA graph of its shape class, kept in
     ``graphs`` (the caller's cache; one made for this call if none is
-    given); ``graph=False`` decodes eagerly. Both give the same result."""
+    given); ``graph=False`` decodes eagerly. Both give the same result.
+
+    On a mesh (``parallel/mesh.shard_params``) each rank decodes its dp rows
+    of ``tokens_init`` and ``xa_kv`` with its tp heads, in a self cache of
+    those heads; a model split over tp decodes eagerly (a CUDA graph would
+    not capture its all-reduces over gloo, which run on the host)."""
     sample_begin, sot_index = int(sample_begin), int(sot_index)
     prefill_len = prefill_len or prompt_bucket(sample_begin)
     max_len = max_len or cfg.n_text_ctx
@@ -293,13 +298,16 @@ def decode_window(
     bounds = cvalid_buckets(cache_len, cvalid_rows)
     sampled = float(temperature) > 0.0
     kv_dtype = self_dtype or cfg.dtype
+    n_head = text_heads(cfg, model)
+    mesh = getattr(model, "mesh", None)
+    graph = graph and (mesh is None or mesh.group("tp") is None)
     inputs = {"xa": xa_kv, "suppress": suppress_mask,
               "temperature": _scalar(float(temperature), torch.float32, dev)}
 
     def make(inp, gen):
         state = _DecodeState(
             tokens=torch.zeros((B, ctx), dtype=torch.int64, device=dev),
-            kv=init_kv_cache(cfg, B, cache_len, dtype=kv_dtype, device=dev),
+            kv=init_kv_cache(cfg, B, cache_len, dtype=kv_dtype, device=dev, n_head=n_head),
             pos=_scalar(0, torch.int64, dev),
             until=_scalar(0, torch.int64, dev),
             sample_begin=_scalar(0, torch.int64, dev),

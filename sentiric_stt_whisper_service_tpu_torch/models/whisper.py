@@ -4,8 +4,19 @@
 Parameters live in ``nn.Module``s (``Whisper`` → ``WhisperEncoder`` /
 ``WhisperDecoder`` → one block per layer in an ``nn.ModuleList``); the
 forward passes are plain functions on tensors, named as in the JAX package.
-Nothing here needs a gradient: weights are ``requires_grad=False`` and the
-callers run under ``torch.inference_mode()``.
+Weights are built ``requires_grad=False`` and the serving callers run under
+``torch.inference_mode()``; training (``runtime/training.py``) turns the
+gradients on for a copy and runs ``encoder_apply``, ``precompute_xa_kv`` and
+``decoder_apply`` without a cache (``kv_cache=None``) under autograd.
+
+Tensor parallelism (``parallel/mesh.shard_params``): a shard holds
+``n_head / tp`` heads of each attention, and the forward passes read the
+head count from its width. Each split ``Dense`` carries its tp group:
+a column-parallel layer's input passes Megatron's f (identity forward,
+all-reduce backward), a row-parallel layer's partial product g (all-reduce
+forward, identity backward) before its bias. On an "sp" mesh the encoder
+holds T/sp rows of its residual stream and all-gathers K and V. A model
+without a mesh runs no collective.
 
 Layouts follow the JAX package so the tests compare like with like: dense
 weights ``[d_in, d_out]``, conv weights ``[K, C_in, C_out]``, the self-KV
@@ -39,6 +50,7 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -49,8 +61,9 @@ from ..ops.beam_attention import (
     beam_cross_attention_reference,
 )
 from ..ops.decode_attention import decode_attention, decode_attention_i4
-from ..ops.flash_attention import flash_attention
+from ..ops.flash_attention import FlashAttention, flash_attention
 from ..ops.quant import unpack_xa_kv
+from ..parallel.mesh import gather_seq, seq_constraint
 
 NEG = -1e30  # the JAX package's mask value
 
@@ -191,11 +204,15 @@ class _Init:
 
 class Dense(nn.Module):
     """``x @ w + b``, or weight-only int8: ``w_q`` int8 [d_in, d_out] with a
-    per-output-channel fp32 ``scale`` (ops/quant.py)."""
+    per-output-channel fp32 ``scale`` (ops/quant.py). On a tensor-parallel
+    shard ``tp_role`` is "column" or "row" and ``tp_group`` the group its
+    partial products are reduced over (``parallel/mesh.shard_params``)."""
 
     def __init__(self, w=None, b=None, w_q=None, scale=None):
         super().__init__()
         self.assign(w=w, b=b, w_q=w_q, scale=scale)
+        self.tp_group = None
+        self.tp_role: Optional[str] = None
 
     @classmethod
     def init(cls, ini: _Init, d_in: int, d_out: int, bias: bool = True) -> "Dense":
@@ -292,6 +309,7 @@ class Whisper(nn.Module):
         ini = _Init(cfg.dtype, torch.device(device), generator)
         self.encoder = WhisperEncoder(cfg, ini)
         self.decoder = WhisperDecoder(cfg, ini)
+        self.mesh = None  # parallel/mesh.Mesh on a shard
 
 
 def init_params(cfg: WhisperConfig, generator: torch.Generator) -> Whisper:
@@ -317,13 +335,53 @@ def layer_norm(x, p: LayerNorm, eps=1e-5):
     return (y * p.g.float() + p.b.float()).to(x.dtype)
 
 
+class _CopyToTP(torch.autograd.Function):
+    """Megatron's f, at a column-parallel layer's input: identity forward;
+    backward, the gradient all-reduced over the tp group (each rank's
+    columns give a part of it)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    """Megatron's g, after a row-parallel layer's product: the partial sums
+    all-reduced forward; identity backward (every rank already holds the
+    whole gradient). ``torch.distributed.nn.functional.all_reduce`` would
+    reduce the gradient as well and multiply it by tp."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        x = x.clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
 def dense(x, p: Dense):
-    """Dense layer; dispatches on weight-only int8 (``w_q``)."""
+    """Dense layer; dispatches on weight-only int8 (``w_q``). On a
+    tensor-parallel shard a column-parallel layer's input passes f, a
+    row-parallel layer's product g, and its bias is added once, after."""
+    if p.tp_group is not None and p.tp_role == "column":
+        x = _CopyToTP.apply(x, p.tp_group)
     if p.w_q is not None:
         y = torch.matmul(x, p.w_q.to(x.dtype))
         y = (y.float() * p.scale).to(x.dtype)
     else:
         y = torch.matmul(x, p.w)
+    if p.tp_group is not None and p.tp_role == "row":
+        y = _ReduceFromTP.apply(y, p.tp_group)
     if p.b is not None:
         y = y + p.b
     return y
@@ -366,12 +424,13 @@ def _attend(q, k, v, mask=None):
 
 
 def mha(q, k, v, n_head: int):
-    """Unmasked multi-head attention, q,k,v: [B, T, d], with (d_head)^-0.25
-    on both q and k.
+    """Unmasked multi-head attention, q [B, T, d], k, v [B, S, d], with
+    (d_head)^-0.25 on both q and k.
 
-    Long sequences (the encoder's 1500 positions) go to
-    ``ops/flash_attention.flash_attention``: K2 on a CUDA tensor, its plain
-    version on a CPU tensor."""
+    Long sequences (the encoder's 1500 positions, S = T) go to
+    ``ops/flash_attention``: K2 on a CUDA tensor, its plain version on a CPU
+    tensor; with grad enabled through ``FlashAttention`` (K2 forward, plain
+    backward)."""
     b, t, d = q.shape
     scale = (d // n_head) ** -0.25
 
@@ -379,15 +438,22 @@ def mha(q, k, v, n_head: int):
         return _split_heads(x, n_head).transpose(1, 2)
 
     qh, kh, vh = to_heads(q) * scale, to_heads(k) * scale, to_heads(v)
-    if t >= 512:
-        out = flash_attention(qh.contiguous(), kh.contiguous(), vh.contiguous())
+    if t >= 512 and k.shape[1] == t:
+        qkv = (qh.contiguous(), kh.contiguous(), vh.contiguous())
+        out = FlashAttention.apply(*qkv) if torch.is_grad_enabled() else flash_attention(*qkv)
     else:
         out = _attend(qh, kh, vh)
     return out.transpose(1, 2).reshape(b, t, d)
 
 
-def attention(x, p: Attention, n_head):
-    return dense(mha(dense(x, p.q), dense(x, p.k), dense(x, p.v), n_head), p.o)
+def attention(x, p: Attention, n_head, seq_group=None):
+    """Self-attention block of ``n_head`` heads (a tensor-parallel shard
+    runs those of its columns). ``seq_group``: the sp group whose ranks hold
+    the other rows of x; K and V are gathered over it."""
+    q, k, v = dense(x, p.q), dense(x, p.k), dense(x, p.v)
+    h = n_head * q.shape[-1] // x.shape[-1]
+    k, v = gather_seq(k, seq_group), gather_seq(v, seq_group)
+    return dense(mha(q, k, v, h), p.o)
 
 
 def mlp(x, p1: Dense, p2: Dense):
@@ -401,21 +467,33 @@ def _conv1d(x, w, b, stride: int):
 
 
 def encoder_apply(cfg: WhisperConfig, model: Whisper, mel: torch.Tensor) -> torch.Tensor:
-    """mel [B, 3000, n_mels] → audio features [B, 1500, d_audio]."""
+    """mel [B, 3000, n_mels] → audio features [B, 1500, d_audio]. On an "sp"
+    mesh the blocks run on this rank's T/sp rows and the output is gathered
+    whole."""
     enc = model.encoder
     x = mel.to(cfg.dtype)
     x = F.gelu(_conv1d(x, enc.conv1_w, enc.conv1_b, stride=1), approximate="none")
     x = F.gelu(_conv1d(x, enc.conv2_w, enc.conv2_b, stride=2), approximate="none")
     x = x + enc.pos[: x.shape[1]].to(x.dtype)
+    x = seq_constraint(x, model.mesh)
+    sp = None if model.mesh is None else model.mesh.group("sp")
     for layer in enc.blocks:
-        x = x + attention(layer_norm(x, layer.attn_ln), layer.attn, cfg.n_audio_head)
+        x = x + attention(layer_norm(x, layer.attn_ln), layer.attn, cfg.n_audio_head, sp)
         x = x + mlp(layer_norm(x, layer.mlp_ln), layer.mlp_1, layer.mlp_2)
-    return layer_norm(x, enc.ln_post)
+    return gather_seq(layer_norm(x, enc.ln_post), sp)
 
 
 # ---------------------------------------------------------------------------
 # Decoder with KV cache
 # ---------------------------------------------------------------------------
+
+
+def text_heads(cfg: WhisperConfig, model: Whisper) -> int:
+    """The decoder heads ``model`` holds: ``cfg.n_text_head``, or a
+    tensor-parallel shard's share, read from its cross-attention q's width."""
+    q = model.decoder.blocks[0].cross_attn.q
+    width = (q.w if q.w is not None else q.w_q).shape[-1]
+    return cfg.n_text_head * width // cfg.n_text_state
 
 
 def init_kv_cache(
@@ -424,8 +502,10 @@ def init_kv_cache(
     cache_len: Optional[int] = None,
     dtype: Optional[torch.dtype] = None,
     device=None,
+    n_head: Optional[int] = None,
 ) -> dict:
-    """Self-attention KV slab, position-major ``[L, B, H, C, hd]``.
+    """Self-attention KV slab, position-major ``[L, B, H, C, hd]``, with
+    ``n_head`` heads (default ``cfg.n_text_head``; a shard's ``text_heads``).
 
     ``dtype`` overrides the storage dtype (default ``cfg.dtype``);
     ``torch.float8_e4m3fn`` halves the slab's bytes, with values converted
@@ -433,7 +513,7 @@ def init_kv_cache(
     ±448 range). Beyond it torch's conversion saturates to ±448, where the
     JAX package's gives NaN from |x| ≥ 464 on."""
     hd = cfg.n_text_state // cfg.n_text_head
-    shape = (cfg.n_text_layer, batch, cfg.n_text_head, cache_len or cfg.n_text_ctx, hd)
+    shape = (cfg.n_text_layer, batch, n_head or cfg.n_text_head, cache_len or cfg.n_text_ctx, hd)
     dt = cfg.dtype if dtype is None else dtype
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device)}
@@ -458,8 +538,8 @@ def precompute_xa_kv(
         raise ValueError(f"bits must be 0, 4 or 8, got {bits}")
     blocks = model.decoder.blocks
     B, T, _ = xa.shape
-    h = cfg.n_text_head
-    hd = cfg.n_text_state // h
+    h = text_heads(cfg, model)
+    hd = cfg.n_text_state // cfg.n_text_head
     L = len(blocks)
     if bits:
         names = ("k_p", "v_p") if bits == 4 else ("k_q", "v_q")
@@ -535,7 +615,7 @@ def decoder_apply(
     model: Whisper,
     tokens: torch.Tensor,  # [B, T] int
     pos_offset: int,  # position of tokens[:, 0]
-    kv_cache: dict,
+    kv_cache: Optional[dict],
     xa_kv: dict,
     collect_cross_attn: bool = False,
     cross_attn_layer_begin: Optional[int] = None,
@@ -544,6 +624,11 @@ def decoder_apply(
     writing the self-attention KV cache in place at
     [pos_offset, pos_offset + T). Returns (logits [B, T, n_vocab] fp32,
     kv_cache).
+
+    ``kv_cache=None`` (training) writes nothing: the self-attention reads
+    this call's K/V under the causal mask, which at ``pos_offset`` 0 is
+    what a fresh cache gives (its later rows are masked), and no view is
+    written after autograd saved it.
 
     ``collect_cross_attn`` (for DTW token timestamps) also returns the
     cross-attention softmax weights, as a third element: stacked
@@ -554,20 +639,19 @@ def decoder_apply(
     dec = model.decoder
     B, T = tokens.shape
     reduced = collect_cross_attn and cross_attn_layer_begin is not None
-    if T == 1 and not collect_cross_attn:
+    if T == 1 and not collect_cross_attn and kv_cache is not None:
         logits, kv_cache = decoder_step(cfg, model, tokens[:, 0], pos_offset, kv_cache, xa_kv)
         return logits[:, None], kv_cache
 
     x = (embed_tokens(dec, tokens) + dec.pos_emb[pos_offset : pos_offset + T]).to(cfg.dtype)
     dev = x.device
-    cache_len = kv_cache["k"].shape[3]
-    kpos = torch.arange(cache_len, device=dev)[None, :]
+    cache_len = T if kv_cache is None else kv_cache["k"].shape[3]
+    kpos = torch.arange(cache_len, device=dev)[None, :] + (pos_offset if kv_cache is None else 0)
     qpos = pos_offset + torch.arange(T, device=dev)[:, None]
     self_mask = (kpos <= qpos)[None, None]  # [1, 1, T, cache_len]
 
-    h = cfg.n_text_head
-    d = cfg.n_text_state
-    scale = (d // h) ** -0.25
+    h = text_heads(cfg, model)
+    scale = (cfg.n_text_state // cfg.n_text_head) ** -0.25
 
     def to_heads(y):  # [B,T,d] → head-major [B,H,T,c]
         return _split_heads(y, h).transpose(1, 2)
@@ -576,16 +660,19 @@ def decoder_apply(
     for li, layer in enumerate(dec.blocks):
         y = layer_norm(x, layer.attn_ln)
         qp, kp, vp = _self_qkv(y, layer.attn)
-        k_cache, v_cache = kv_cache["k"][li], kv_cache["v"][li]
-        k_cache[:, :, pos_offset : pos_offset + T] = to_heads(kp).to(k_cache.dtype)
-        v_cache[:, :, pos_offset : pos_offset + T] = to_heads(vp).to(v_cache.dtype)
-        sa = _attend(to_heads(qp) * (scale * scale), k_cache, v_cache, self_mask)
-        x = x + dense(sa.transpose(1, 2).reshape(B, T, d), layer.attn.o)
+        if kv_cache is None:
+            k_self, v_self = to_heads(kp), to_heads(vp)
+        else:
+            k_self, v_self = kv_cache["k"][li], kv_cache["v"][li]
+            k_self[:, :, pos_offset : pos_offset + T] = to_heads(kp).to(k_self.dtype)
+            v_self[:, :, pos_offset : pos_offset + T] = to_heads(vp).to(v_self.dtype)
+        sa = _attend(to_heads(qp) * (scale * scale), k_self, v_self, self_mask)
+        x = x + dense(sa.transpose(1, 2).reshape(B, T, -1), layer.attn.o)
 
         y = layer_norm(x, layer.cross_attn_ln)
         q = to_heads(dense(y, layer.cross_attn.q))
         ca, w = _attend_xa(q, _xa_layer(xa_kv, li), scale)
-        x = x + dense(ca.transpose(1, 2).reshape(B, T, d), layer.cross_attn.o)
+        x = x + dense(ca.transpose(1, 2).reshape(B, T, -1), layer.cross_attn.o)
         if reduced:
             if li >= cross_attn_layer_begin:
                 acc = w.mean(dim=1) if acc is None else acc + w.mean(dim=1)
@@ -658,9 +745,8 @@ def decoder_step(
     ``decoder_step(c_valid=)``. Returns (logits [S, V] fp32, kv_cache)."""
     dec = model.decoder
     S = tokens.shape[0]
-    h = cfg.n_text_head
-    d = cfg.n_text_state
-    hd = d // h
+    h = text_heads(cfg, model)
+    hd = cfg.n_text_state // cfg.n_text_head
     scale = hd**-0.25
     pos1 = pos_index(pos, tokens.device)
     at = (torch.arange(S, device=pos1.device), pos1) if pos1.numel() > 1 else pos1
@@ -677,12 +763,12 @@ def decoder_step(
         _write_rows(v_cache, at, vp.reshape(S, h, hd))
         q = qp.reshape(S, h, 1, hd)
         sa = _attend(q * (scale * scale), k_cache[:, :, :cv], v_cache[:, :, :cv], self_mask)
-        x = x + dense(sa.reshape(S, 1, d).to(x.dtype), layer.attn.o)
+        x = x + dense(sa.reshape(S, 1, h * hd).to(x.dtype), layer.attn.o)
 
         y = layer_norm(x, layer.cross_attn_ln)
         q = dense(y, layer.cross_attn.q).reshape(S, h, hd)
         ca = _attend_xa_step(q, _xa_layer(xa_kv, li), scale)
-        x = x + dense(ca.reshape(S, 1, d).to(x.dtype), layer.cross_attn.o)
+        x = x + dense(ca.reshape(S, 1, h * hd).to(x.dtype), layer.cross_attn.o)
 
         x = x + mlp(layer_norm(x, layer.mlp_ln), layer.mlp_1, layer.mlp_2)
     x = layer_norm(x, dec.ln)
@@ -710,9 +796,8 @@ def decoder_verify(
     T queries as its beams against the item's one slab."""
     dec = model.decoder
     B, T = tokens.shape
-    h = cfg.n_text_head
-    d = cfg.n_text_state
-    hd = d // h
+    h = text_heads(cfg, model)
+    hd = cfg.n_text_state // cfg.n_text_head
     scale = hd**-0.25
     dev = tokens.device
     steps = torch.arange(T, device=dev)
@@ -732,12 +817,12 @@ def decoder_verify(
             int_view(cache).index_copy_(2, cache_rows, int_view(to_heads(new).to(cache.dtype)))
         sa = _attend(to_heads(qp) * (scale * scale), kv_cache["k"][li], kv_cache["v"][li],
                      self_mask)
-        x = x + dense(sa.transpose(1, 2).reshape(B, T, d).to(x.dtype), layer.attn.o)
+        x = x + dense(sa.transpose(1, 2).reshape(B, T, h * hd).to(x.dtype), layer.attn.o)
 
         y = layer_norm(x, layer.cross_attn_ln)
         q = to_heads(dense(y, layer.cross_attn.q)).contiguous()  # [B,H,T,hd]
         ca = _attend_xa_beam(q, _xa_layer(xa_kv, li), scale)
-        x = x + dense(ca.transpose(1, 2).reshape(B, T, d).to(x.dtype), layer.cross_attn.o)
+        x = x + dense(ca.transpose(1, 2).reshape(B, T, h * hd).to(x.dtype), layer.cross_attn.o)
 
         x = x + mlp(layer_norm(x, layer.mlp_ln), layer.mlp_1, layer.mlp_2)
     x = layer_norm(x, dec.ln)
@@ -766,9 +851,8 @@ def decoder_step_beam(
     S = tokens.shape[0]
     K = beam_size
     B = S // K
-    h = cfg.n_text_head
-    d = cfg.n_text_state
-    hd = d // h
+    h = text_heads(cfg, model)
+    hd = cfg.n_text_state // cfg.n_text_head
     scale = hd**-0.25
     pos1 = pos_index(pos, tokens.device)
 
@@ -781,12 +865,12 @@ def decoder_step_beam(
         _write_rows(v_cache, pos1, vp.reshape(S, h, hd))
         sa = beam_attention(qp.reshape(S, h, hd).contiguous(), k_cache, v_cache, anc, K,
                             scale=scale * scale, c_valid=c_valid)
-        x = x + dense(sa.reshape(S, 1, d).to(x.dtype), layer.attn.o)
+        x = x + dense(sa.reshape(S, 1, h * hd).to(x.dtype), layer.attn.o)
 
         y = layer_norm(x, layer.cross_attn_ln)
         q = dense(y, layer.cross_attn.q).reshape(B, K, h, hd).transpose(1, 2).contiguous()
         ca = _attend_xa_beam(q, _xa_layer(xa_kv, li), scale)  # [B,H,K,hd]
-        x = x + dense(ca.transpose(1, 2).reshape(S, 1, d).to(x.dtype), layer.cross_attn.o)
+        x = x + dense(ca.transpose(1, 2).reshape(S, 1, h * hd).to(x.dtype), layer.cross_attn.o)
 
         x = x + mlp(layer_norm(x, layer.mlp_ln), layer.mlp_1, layer.mlp_2)
     x = layer_norm(x, dec.ln)

@@ -6,6 +6,12 @@ tensor never reaches device memory. Interface: head-major [B, H, L, d], the
 layout of the JAX package's ``ops/flash_attention.py``, with q and k each
 pre-scaled by d^-0.25 by the caller. A CPU tensor takes
 ``attention_reference``.
+
+``FlashAttention`` is the wrapper under autograd, for training: its forward
+is ``flash_attention`` and it saves q, k and v; its backward recomputes the
+fp32 scores and softmax and takes the attention gradient in plain PyTorch
+(``attention_backward``). The JAX package has no backward kernel either: its
+gradient is XLA's autodiff of the plain path.
 """
 
 from __future__ import annotations
@@ -17,13 +23,49 @@ from .. import kernels
 HEAD_DIM = 64  # the kernel's d; every Whisper size has 64-wide heads
 
 
+def _acc(t: torch.Tensor) -> torch.dtype:
+    """The accumulation type: fp32, or fp64 for fp64 inputs (gradcheck)."""
+    return torch.promote_types(t.dtype, torch.float32)
+
+
 def attention_reference(q, k, v):
     """Plain version with the same numerics as the kernel's reference in the
     JAX package: fp32 scores and softmax, weights cast to v's dtype, fp32
     products."""
-    scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    acc = _acc(q)
+    scores = torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2))
     w = torch.softmax(scores, dim=-1).to(v.dtype)
-    return torch.matmul(w.float(), v.float()).to(v.dtype)
+    return torch.matmul(w.to(acc), v.to(acc)).to(v.dtype)
+
+
+def attention_backward(q, k, v, grad_out):
+    """The gradient of softmax(q kᵀ) v with respect to q, k and v, all
+    head-major [B, H, L, d]: the scores and softmax p recomputed in fp32,
+    then dv = pᵀ dO, dp = dO vᵀ, ds = p ∘ (dp - rowsum(p ∘ dp)), dq = ds k,
+    dk = dsᵀ q, each cast to its input's dtype."""
+    acc = _acc(q)
+    q32, k32, v32, g32 = q.to(acc), k.to(acc), v.to(acc), grad_out.to(acc)
+    p = torch.softmax(torch.matmul(q32, k32.transpose(-1, -2)), dim=-1)
+    dv = torch.matmul(p.transpose(-1, -2), g32)
+    dp = torch.matmul(g32, v32.transpose(-1, -2))
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    dq = torch.matmul(ds, k32)
+    dk = torch.matmul(ds.transpose(-1, -2), q32)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class FlashAttention(torch.autograd.Function):
+    """``flash_attention`` with a gradient: K2 forward on a CUDA tensor (its
+    plain version on a CPU tensor), ``attention_backward`` backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        return flash_attention(q, k, v)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        return attention_backward(*ctx.saved_tensors, grad_out)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -104,12 +104,20 @@ def _dense_modules(model):
     return [m for m in model.modules() if isinstance(m, Dense)]
 
 
+def _refuse_shard(model, name: str) -> None:
+    if getattr(model, "mesh", None) is not None:
+        raise ValueError(f"{name}: the model is a tensor-parallel shard (parallel/mesh.py)")
+
+
 def quantize_params(model, encoder: bool = True, embedding: bool = True):
     """Quantize a ``Whisper`` module to weight-only int8, in place.
 
     Transformer-block dense weights (and optionally the token embedding)
     become int8; conv stems, positional embeddings and layer norms keep
-    their dtype. ``models/whisper.dense`` dispatches on ``w_q``."""
+    their dtype. ``models/whisper.dense`` dispatches on ``w_q``. A
+    tensor-parallel shard is refused: quantize, then shard, as the JAX
+    package does (a row-parallel layer's scales span every shard's rows)."""
+    _refuse_shard(model, "quantize_params")
     blocks = list(model.decoder.blocks)
     if encoder:
         blocks += list(model.encoder.blocks)
@@ -127,9 +135,12 @@ def fuse_decoder_qkv(model):
     """Concatenate each decoder block's self-attention q/k/v projections
     into one ``qkv`` dense ([d, 3d]), in place: one product instead of
     three on the decode path. Works on float or int8 weights (column-wise
-    concat of w/w_q, scale, and bias with zeros for the bias-free k)."""
+    concat of w/w_q, scale, and bias with zeros for the bias-free k). A
+    tensor-parallel shard is refused: under tp q/k/v stay apart, as the JAX
+    engine keeps them."""
     from ..models.whisper import Dense
 
+    _refuse_shard(model, "fuse_decoder_qkv")
     for block in model.decoder.blocks:
         attn = block.attn
         if attn.qkv is not None:  # already fused

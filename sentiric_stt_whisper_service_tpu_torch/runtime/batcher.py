@@ -136,8 +136,8 @@ class ContinuousBatcher:
     ):
         if mesh is not None:
             raise NotImplementedError(
-                "ContinuousBatcher(mesh=...): sharding over a device mesh is not ported yet "
-                "(ROADMAP queue 1 item 15)")
+                "ContinuousBatcher(mesh=...): the batcher over a device mesh is not ported "
+                "yet (ROADMAP queue 1 item 15b)")
         if kv_bits is None:
             kv_bits = 8 if quantize_kv else 0
         if kv_bits not in _XA_NAMES:

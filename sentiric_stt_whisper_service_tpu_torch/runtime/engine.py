@@ -66,7 +66,7 @@ What differs from the JAX package:
     batcher of its width is idle; ``PerformanceMetrics.spec`` counts the
     request's rounds, emitted tokens and accepted drafts.
   * **Refused, not hidden**: ``mesh_shape`` other than "1" (ROADMAP queue 1
-    item 15), ``beam_size`` above ``config.MAX_BEAM_SIZE`` and a draft of
+    item 15b), ``beam_size`` above ``config.MAX_BEAM_SIZE`` and a draft of
     another encoder width raise at construction; a request's ``beam_size``
     above the limit raises. ``FLASH_ATTN=0`` has no effect here: the
     encoder's attention runs K2 on the card (the engine says so in its log
@@ -281,8 +281,10 @@ class SttEngine:
         self.model_name = name
         if settings.mesh_shape not in ("1", "", None):
             raise NotImplementedError(
-                f"mesh_shape={settings.mesh_shape!r}: sharding over a device mesh "
-                "(parallel/mesh.py) is not ported yet (ROADMAP queue 1 item 15)"
+                f"mesh_shape={settings.mesh_shape!r}: the engine over a device mesh (one "
+                "process per device, rank 0's device calls replayed by the others) is not "
+                "ported yet (ROADMAP queue 1 item 15b); parallel/ shards the model for "
+                "training and decode_window"
             )
         check_beam_size(settings.beam_size)
         self.device = resolve_device(settings.device)

@@ -82,8 +82,8 @@ class BeamGang:
     ):
         if mesh is not None:
             raise NotImplementedError(
-                "BeamGang(mesh=...): sharding over a device mesh is not ported yet "
-                "(ROADMAP queue 1 item 15)")
+                "BeamGang(mesh=...): the gang over a device mesh is not ported yet "
+                "(ROADMAP queue 1 item 15b)")
         self.cfg, self.params, self.ids = cfg, params, ids
         self.suppress_mask = suppress_mask
         self.device = suppress_mask.device

@@ -1,15 +1,19 @@
 """Service entry point over the port's engine: the JAX package's
 ``serving/main.py`` lifecycle (the reference service's main.cpp:65-168).
 
-Startup order: logging → settings → model provisioning (and the Silero VAD)
-→ metrics registry → engine (on the card unless ``Settings.device`` says
-"cpu") → warm-up → gRPC listener (insecure or mTLS) → HTTP and metrics
-servers on their own threads → park until SIGINT/SIGTERM → ordered
-shutdown.
+Startup order: logging → settings → the multi-process leg → model
+provisioning (and the Silero VAD) → metrics registry → engine (on the card
+unless ``Settings.device`` says "cpu") → warm-up → gRPC listener (insecure
+or mTLS) → HTTP and metrics servers on their own threads → park until
+SIGINT/SIGTERM → ordered shutdown.
 
-Left out: the JAX package's ``jax.distributed`` multi-host leg. The port has
-no ``parallel/`` yet, and its engine refuses a ``mesh_shape`` other than
-"1".
+The multi-process leg (the JAX package's ``jax.distributed`` one):
+``parallel.maybe_initialize_distributed`` joins the processes before any
+device touch when ``STT_WHISPER_SERVICE_COORDINATOR_ADDRESS`` is set
+(``DISTRIBUTED_READY``; a failure logs ``DISTRIBUTED_INIT_FAILED`` and
+raises). The engine still refuses a ``mesh_shape`` other than "1": its
+route over a mesh, every rank replaying rank 0's device calls, is ROADMAP
+queue 1 item 15b.
 
     python -m sentiric_stt_whisper_service_tpu_torch.serving [--random-init]
 """
@@ -22,9 +26,11 @@ import os
 import signal
 import threading
 
+import torch.distributed as dist
 from aiohttp import web
 
 from ..config import Settings, load_settings
+from ..parallel import maybe_initialize_distributed
 from ..runtime import SttEngine
 from .grpc_server import build_server
 from .http_server import HttpServer, MetricsServer, init_device_profiler
@@ -120,6 +126,20 @@ def serve(settings: Settings | None = None, random_init: bool = False, block=Tru
     settings = settings or load_settings()
     setup_logging(settings.log_level)
     suts_info("SERVICE_STARTING", "", "", "", "Starting CUDA STT service")
+
+    # The multi-process leg, env-gated: before any device touch, so that
+    # each process takes its card first.
+    try:
+        if maybe_initialize_distributed(
+                device="cpu" if (settings.device or "").strip().lower() == "cpu" else None):
+            suts_info(
+                "DISTRIBUTED_READY", "", "", "",
+                "torch.distributed initialized: process %d of %d",
+                dist.get_rank(), dist.get_world_size(),
+            )
+    except Exception as e:  # noqa: BLE001 — refuse to serve half a cluster
+        suts_error("DISTRIBUTED_INIT_FAILED", "", "", "", "%s", e)
+        raise
 
     if not random_init:
         try:

@@ -1,5 +1,5 @@
-"""The PyTorch port stands alone: importing it pulls in neither JAX nor the
-JAX package, its sources hold no library stand-ins for its kernels, and
+"""The PyTorch port stands alone: importing it pulls in neither JAX, optax nor
+the JAX package, its sources hold no library stand-ins for its kernels, and
 its kernel wrappers take their plain versions only for CPU tensors."""
 
 import os
@@ -59,6 +59,10 @@ MODULES = [
     "sentiric_stt_whisper_service_tpu_torch.cli",
     "sentiric_stt_whisper_service_tpu_torch.cli.main",
     "sentiric_stt_whisper_service_tpu_torch.cli.convert",
+    "sentiric_stt_whisper_service_tpu_torch.parallel",
+    "sentiric_stt_whisper_service_tpu_torch.parallel.mesh",
+    "sentiric_stt_whisper_service_tpu_torch.parallel.distributed",
+    "sentiric_stt_whisper_service_tpu_torch.runtime.training",
 ]
 
 
@@ -66,7 +70,7 @@ def test_import_leaves_out_jax_and_the_reference():
     code = (
         "import importlib, sys\n"
         f"for m in {MODULES!r}: importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'optax')"
         " or m == 'sentiric_stt_whisper_service_tpu'"
         " or m.startswith('sentiric_stt_whisper_service_tpu.'))\n"
         "assert not bad, bad\n"
@@ -82,7 +86,8 @@ def test_import_leaves_out_jax_and_the_reference():
 
 
 @pytest.mark.parametrize(
-    "needle", ["import jax", "from jax", "scaled_dot_product_attention", "torch.compile",
+    "needle", ["import jax", "from jax", "import optax", "from optax",
+               "scaled_dot_product_attention", "torch.compile",
                "sentiric_stt_whisper_service_tpu.", "import tiktoken", "from safetensors",
                "import safetensors"],
 )

@@ -3,9 +3,10 @@ row of the ``kernels`` JSON line each) has every launch counter of
 ``kernels.LAUNCHES``, each with a source in ``csrc/`` and the line of the
 ``pl.pallas_call`` it replaces, and its ``--profile`` name list covers every
 ``__global__`` function of ``csrc/``, so the breakdown drops none. Its
-docstring numbers phases 1 to 11, phase 8's wire chunks carry the WAV header
-and odd byte counts, and the probe's and the serving phase's constants hold
-what they promise.
+docstring numbers phases 1 to 12, phase 8's wire chunks carry the WAV header
+and odd byte counts, the probe's and the serving phase's constants hold
+what they promise, and phase 12's gradient and decode checks fail what they
+must.
 chip_smoke.py's top level is stdlib only, so it imports here without a card."""
 
 import importlib.util
@@ -42,12 +43,125 @@ def test_profile_names_cover_every_kernel_function():
 
 
 def test_docstring_numbers_every_phase():
-    """The module docstring describes phases 1 to 11, in order (9: serving,
-    10: the int8 attention probe, 11: speculative decoding)."""
+    """The module docstring describes phases 1 to 12, in order (9: serving,
+    10: the int8 attention probe, 11: speculative decoding, 12: training and
+    the mesh)."""
     doc = _smoke().__doc__
     numbers = [int(n) for n in re.findall(r"^(\d+)\. ", doc, flags=re.M)]
-    assert numbers == list(range(1, 12))
+    assert numbers == list(range(1, 13))
     assert "probe_flash_int8" in doc and "serving" in doc and "spec_turbo" in doc
+    assert "training_tp" in doc and "--tp-worker" in doc
+
+
+def test_phase_twelve_runs_last_and_the_last_line_stays():
+    """Phase 12 (training, then the tp ranks) runs after phase 11 and before
+    the kernels line; the last line printed is still the contract's
+    ``{"ok": true, "device": {"platform": "gpu", ...}}``; a tp rank starts
+    before the CUDA check only as ``--tp-worker``."""
+    text = (ROOT / "chip_smoke.py").read_text()
+    run_body = text[text.index("def run(torch, np"):text.index("def voiced_like(")]
+    order = [run_body.index(k) for k in (
+        "spec_phase(torch, np, model", "training_phase(torch, np, paths, card)",
+        "print(json.dumps({\"kernels\": kernels_json}))", "print(json.dumps({\"ok\": True")]
+    assert order == sorted(order)
+    tail = run_body[order[-1]:]
+    assert tail.split("return 0")[0].strip() == (
+        'print(json.dumps({"ok": True, "device": {\n'
+        '        "platform": "gpu", "kind": torch.cuda.get_device_name(0),\n'
+        '        "count": torch.cuda.device_count()}}))')
+    main = text[text.index("def main()"):text.index("def compare(")]
+    assert main.index('"--tp-worker" in args') < main.index("torch.cuda.is_available()")
+
+
+def test_grad_errors_refuse_a_one_sided_zero():
+    """Phase 12's gradient comparison: max |dg| / max |g| per parameter, and
+    a failure where one side's gradient is all zero (or not finite) and the
+    other's is not."""
+    import pytest
+    import torch
+
+    smoke = _smoke()
+    want = {"a": torch.tensor([1.0, -2.0]), "b": torch.tensor([0.5, 0.5])}
+    rels = smoke.grad_errors(torch, {"a": torch.tensor([1.0, -1.9]), "b": want["b"]}, want)
+    assert rels == pytest.approx({"a": 0.05, "b": 0.0})
+    for bad in (torch.zeros(2), torch.tensor([float("nan"), 0.5])):
+        with pytest.raises(smoke.SmokeFailure):
+            smoke.grad_errors(torch, {"a": want["a"], "b": bad}, want)
+
+
+
+def test_worst_by_group_splits_the_encoder_attention_leaves():
+    """Phase 12's two gradient bounds: the encoder's attention q/k/v weights
+    and biases form one group, every other parameter (the decoder's q/k/v,
+    the encoder's o) the other; each group gives its largest error and its
+    parameter."""
+    smoke = _smoke()
+    rels = {"encoder.blocks.0.attn.q.w": 0.01, "encoder.blocks.31.attn.v.b": 0.03,
+            "encoder.blocks.3.attn.k.w": 0.02, "encoder.blocks.0.attn.o.w": 0.5,
+            "decoder.blocks.0.attn.k.w": 0.08, "decoder.blocks.0.cross_attn.q.w": 0.04}
+    assert smoke.worst_by_group(rels) == {
+        "attention": (0.03, "encoder.blocks.31.attn.v.b"),
+        "rest": (0.5, "encoder.blocks.0.attn.o.w")}
+
+
+def test_planted_fault_spoils_only_the_q_and_k_gradients():
+    """Phase 12's stand-ins for ``FlashAttention`` on CPU tensors (its
+    forward takes the plain version there): the plain path's gradient equals
+    ``FlashAttention``'s to 1e-5 (fp32), and the planted fault, a backward
+    without its rowsum term, keeps dv and is off by O(1) of max |g| in dq
+    and dk, far above the phase's bound for those leaves."""
+    import torch
+
+    from sentiric_stt_whisper_service_tpu_torch.ops.flash_attention import FlashAttention
+
+    smoke = _smoke()
+    plain, no_rowsum = smoke.attention_variants(torch)
+    g = torch.Generator().manual_seed(0)
+    q, k, v, dout = (torch.randn((2, 3, 40, 64), generator=g) for _ in range(4))
+    q = q * 0.3  # softmax not one-hot
+    k = k + 1.0  # a mean key: the dropped term D * mean(k) is large
+
+    def grads(fn):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        fn(*leaves).backward(dout)
+        return [t.grad for t in leaves]
+
+    want = grads(plain.apply)
+    for got, w in zip(grads(FlashAttention.apply), want):
+        assert ((got - w).abs().max() / w.abs().max()).item() <= 1e-5
+    faulty = [((got - w).abs().max() / w.abs().max()).item()
+              for got, w in zip(grads(no_rowsum.apply), want)]
+    assert faulty[2] <= 1e-5
+    assert min(faulty[:2]) > 10 * smoke.TRAIN_GRAD_TOL_ATTN, faulty
+
+
+def test_tp_decode_check_holds_a_divergence_to_twice_the_drift():
+    """Phase 12 (b): a tp rank's decode equal to the unsharded one passes; a
+    window that differs passes where the unsharded top-two margin at its
+    first differing token is within twice the teacher-forced drift, and
+    fails where it is above."""
+    import pytest
+    import torch
+
+    smoke = _smoke()
+    want = torch.arange(2 * 16).reshape(2, 16)
+    forced = torch.zeros((2, 16, 8))
+    margins = torch.full((2, 16), 0.5)
+    margins[1, 5] = 0.01
+    ref = {"tokens": want, "forced": forced, "margins": margins, "s": 1.0}
+    drifted = forced.clone()
+    drifted[0, 3, 2] = 0.02  # drift 0.02: twice it is 0.04
+
+    def out(tokens):
+        return {"tokens_int4": tokens, "forced_int4": drifted, "decode_int4_s": 1.0}
+
+    smoke.tp_decode_check(torch, 0, "int4", ref, out(want.clone()), "card")
+    flip = want.clone()
+    flip[1, 5:] = -1  # window 1 from token 5, where the margin is 0.01
+    smoke.tp_decode_check(torch, 0, "int4", ref, out(flip), "card")
+    flip[1, 4] = -1  # from token 4, where the margin is 0.5
+    with pytest.raises(smoke.SmokeFailure):
+        smoke.tp_decode_check(torch, 0, "int4", ref, out(flip), "card")
 
 
 def test_stream_chunks_carry_the_header_and_odd_counts():
