@@ -236,21 +236,53 @@ JAX package) and fails with a non-zero exit on the first phase that fails:
    at its first differing token within twice the largest difference of the
    two models' teacher-forced logits over the unsharded decode. The phase
    prints its wall.
+13. the engine over a mesh (``runtime/engine.py`` under ``mesh_shape``,
+   ``parallel/replay.py``): phase 4's large-v3 int8 weights (seed 0), int4
+   compute, phase 6's settings and relaxed gates at ``parallel_requests`` =
+   ``max_batch_size`` = 2, 32 tokens a window, a voiced 12 s clip: greedy on
+   the lone path with the language pinned (K4) and token timestamps, two
+   at once with the language detected (detection: K4; the batcher's pool:
+   K3), beam 5 through the gang (K5, K6). The unsharded engine (mesh "1")
+   in this process gives the yardstick. Then this script twice as
+   ``--mesh-worker`` (two processes on the one card over gloo): (a) mesh
+   "1x2" (tp = 2, 10 heads a rank; path ``engine_tp``, decode eager), (b)
+   mesh "1x1x2" (sp = 2; path ``engine_sp``, the lone request, graphed),
+   rank 0 serving and rank 1 following. Each decode equals the unsharded
+   one, or where it differs the unsharded top-two margin at its first
+   differing token lies within twice the drift (phase 12's rule; the drift
+   from the two models' teacher-forced logits over the yardstick's rows on
+   the int4 slab, the mesh's computed on its ranks through the replay
+   channel), for beam 5 the chosen hypotheses' average log-probabilities
+   within four times the drift; equal decodes give equal segments (text,
+   times, token pieces) and alignment scores within twice the distance that
+   one ulp of the encoder output moves the unsharded ones
+   (``align_sensitivity``; the token times, a DTW over them, are printed).
+   Each rank holds K2-K6 against their plain
+   versions on their last call's inputs at the rank's shapes (phase 3's
+   tolerances); on (b) K2's last call is a rank's 750 query rows against
+   1500 keys. It prints each request's wall beside the unsharded one's,
+   each rank's launches and peak memory, and rank 0's replay broadcasts a
+   step on the lone request (tp: its share of the eager step). Phase 3
+   holds K2 at one window and at (b)'s rank shape too (``sp_form`` in the
+   K2 JSON row, with its launches on ``engine_sp``).
 
 ``--tp-worker RANK PORT DIR`` is one rank of phase 12's tensor-parallel
-leg (started by the phase; its inputs and outputs in ``DIR``).
+leg, ``--mesh-worker RANK PORT DIR`` one of phase 13's (started by the
+phase; its inputs and outputs in ``DIR``).
 
 ``--kernels-of DIR`` runs phases 1–3 only, with the package of the checkout
 in ``DIR``, and ends with the checks as one JSON list; ``--compare DIR`` runs
 that for ``DIR`` and for this checkout in turns (DIR, this, this, DIR) and
-prints the times side by side: the way to hold a change against its parent
+prints the times side by side, and whether each check's kernel output is
+bit-equal in all four runs: the way to hold a change against its parent
 commit on one card.
 
 Each path (greedy int4, greedy int8, greedy bf16, beam 5, engine greedy,
 engine beam, concurrent greedy, concurrent greedy int8, concurrent beam,
 the concurrent pools' and gang's own, phase 8's streams, serving, the
-probe, phase 11's greedy, speculative and engine runs, and phase 12's
-training steps and tp ranks) has its own launch counts, set to 0 just before its (first) run and read just after it; each
+probe, phase 11's greedy, speculative and engine runs, phase 12's
+training steps and tp ranks, and phase 13's tp and sp engines) has its own
+launch counts, set to 0 just before its (first) run and read just after it; each
 run must launch every kernel of its path. A graph replay adds the launches
 its capture counted. ``--profile`` runs phase 3, then replaces phases 4–5
 with a breakdown of both slices (the greedy one with the int4 and the int8
@@ -534,9 +566,14 @@ def check_kernels(torch, np) -> list[dict]:
         ``alone``, the kernel's call where ``kernel_fn`` wraps it in plain
         PyTorch, gives its own device time ``alone_device_ms``. ``per_item``
         holds each item (the outputs' first axis) to ``tol`` of its own max
-        |plain| as well."""
+        |plain| as well. ``digest`` names the kernel's output bytes, so that
+        ``--compare`` shows where two trees' kernels give the same bits."""
+        import hashlib
+
         got, want = kernel_fn(), plain_fn()
         torch.cuda.synchronize()
+        digest = hashlib.sha256(got.contiguous().view(torch.uint8).cpu().numpy()
+                                .tobytes()).hexdigest()[:16]
         require(got.shape == want.shape and got.dtype == want.dtype,
                 f"{name}: kernel gives {tuple(got.shape)} {got.dtype}, plain "
                 f"{tuple(want.shape)} {want.dtype}")
@@ -578,7 +615,7 @@ def check_kernels(torch, np) -> list[dict]:
                          library_ms=library_ms if mine else None, device_ms=device_ms,
                          cold_device_ms=cold_ms, alone_device_ms=alone_ms,
                          library_device_ms=library_device_ms if mine else None,
-                         bound_ms=bound_ms, bound_by=bound_by, **meta))
+                         bound_ms=bound_ms, bound_by=bound_by, digest=digest, **meta))
 
     # K1: 4 windows of 30 s at large-v3's 128 mels; both sides through the
     # whole-clip clamp so the tolerance is the JAX package's (atol 3e-4); the
@@ -625,6 +662,30 @@ def check_kernels(torch, np) -> list[dict]:
             CONCURRENT * H_ * L_ * L_),
            library_fn=lambda: F_.scaled_dot_product_attention(q8, k8_, v8_, scale=1.0),
            kernel="flash_attention")
+
+    # ... and at one window: unsharded (Lq = Lk = 1500), and a rank's 750
+    # query rows of an sp = 2 mesh against the 1500 keys of both ranks
+    # (phase 13 (b)); from a generator of their own, so that the later
+    # checks draw the same inputs in a tree that has no sp form.
+    g1 = torch.Generator(device=dev)
+    g1.manual_seed(SEED + 2)
+    try:  # a tree whose K2 takes one length only (``--kernels-of`` an older one)
+        flash_attention(*(torch.zeros((1, 1, n, 64), device=dev).bfloat16()
+                          for n in (64, 128, 128)))
+        lengths = ((L_, False), (L_ // 2, True))
+    except ValueError:
+        lengths = ((L_, False),)
+    for lq, sp_form in lengths:
+        q1 = (torch.randn((1, H_, lq, D_), generator=g1, device=dev) * 0.3).bfloat16()
+        k1, v1 = ((torch.randn((1, H_, L_, D_), generator=g1, device=dev) * s_).bfloat16()
+                  for s_ in (0.3, 1.0))
+        record(f"K2 flash_attention q [1,20,{lq},64] k [1,20,{L_},64]",
+               lambda: flash_attention(q1, k1, v1), lambda: attention_reference(q1, k1, v1),
+               lambda peak: 2**-5 * peak,
+               "4 bf16 steps at max |plain|: weights and output rounded to bf16",
+               (nbytes(q1, k1, v1, q1), {"bf16": 4 * H_ * lq * L_ * D_}, H_ * lq * L_),
+               library_fn=lambda: F_.scaled_dot_product_attention(q1, k1, v1, scale=1.0),
+               kernel="flash_attention", sp=sp_form)
 
     # P1: the int8 attention probe's kernel at the probe's shape, both modes,
     # on the probe's own inputs. Operations: QKᵀ on the int8 tensor cores and
@@ -925,6 +986,10 @@ def main() -> int:
         i = args.index("--tp-worker")
         sys.path.insert(0, str(ROOT))
         return tp_worker(torch, int(args[i + 1]), int(args[i + 2]), Path(args[i + 3]))
+    if "--mesh-worker" in args:  # phase 13's rank: its device is the phase's
+        i = args.index("--mesh-worker")
+        sys.path.insert(0, str(ROOT))
+        return mesh_worker(torch, int(args[i + 1]), int(args[i + 2]), Path(args[i + 3]))
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false: no CUDA device", file=sys.stderr)
         return 1
@@ -971,7 +1036,10 @@ def compare(other: Path) -> int:
         if r.get(k) is not None)
     for name in runs[1]:
         got = [fmt(run.get(name)) for run in (runs[0], runs[3], runs[1], runs[2])]
-        print(f"  {name:<38} {got[0]}, {got[1]} | {got[2]}, {got[3]}")
+        bits = {run[name].get("digest") for run in runs if name in run}
+        same = ("" if name not in runs[0] or None in bits
+                else "; outputs bit-equal" if len(bits) == 1 else "; outputs differ")
+        print(f"  {name:<38} {got[0]}, {got[1]} | {got[2]}, {got[3]}{same}")
     return 0
 
 
@@ -1289,6 +1357,11 @@ def run(torch, np, profile: bool = False, kernels_only: bool = False) -> int:
           f"{TRAIN_STEPS} AdamW steps; tp = 2 on the one card over gloo [{card}]")
     training_phase(torch, np, paths, card)
 
+    print(f"== 13. the engine over a mesh: large-v3 int4, two processes on the one card over "
+          f"gloo: tp = 2 (mesh 1x2), then sp = 2 (mesh 1x1x2), beside the unsharded engine "
+          f"[{card}]")
+    mesh_phase(torch, np, model, paths, card)
+
     kernels_json = []
     for name, (src, replaces, path) in SOURCES.items():
         mine = [c for c in checks if c["kernel"] == name]
@@ -1307,6 +1380,13 @@ def run(torch, np, profile: bool = False, kernels_only: bool = False) -> int:
             **{k: row[k] for k in ("prepass_device_ms", "attention_device_ms", "k2_device_ms")
                if k in row},
         })
+        sp_row = next((c for c in mine if c.get("sp")), None)
+        if sp_row is not None:  # K2 at a rank's rows of sp = 2, launches on phase 13 (b)
+            kernels_json[-1]["sp_form"] = {
+                "check": sp_row["check"], "launches": paths["engine_sp"][name],
+                "launches_path": "engine_sp", **{k: sp_row[k] for k in (
+                    "max_abs_err", "ms", "plain_ms", "device_ms", "bound_ms", "bound_by",
+                    "library_ms")}}
         verify = next((c for c in mine if c.get("verify")), None)
         if verify is not None:  # K6 at the verify form, with its launches on the spec path
             kernels_json[-1]["verify_form"] = {
@@ -3266,6 +3346,458 @@ def tp_worker(torch, rank: int, port: int, tmp: Path) -> int:
     for form, d in decodes.items():
         out.update({f"tokens_{form}": d["tokens"], f"decode_{form}_s": d["s"],
                     f"forced_{form}": d["forced"]})
+    torch.save(out, tmp / f"rank{rank}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+MESH_TOKENS = 32  # phase 13: RequestOptions.max_decode_tokens of every request
+# Phase 13: the alignment pass's scores on a mesh against the unsharded ones
+# are held to ALIGN_SLACK x the scores' own rounding sensitivity: how far they
+# move when every element of the encoder output moves by one ulp. On random
+# weights the cross-attention is nearly flat over the frames, so the z-scored
+# scores move by O(1) under any rounding change;
+# token times, the DTW path through them, move far, and are printed.
+ALIGN_SLACK = 2.0
+MESH_SHAPES = (("engine_tp", "1x2"), ("engine_sp", "1x1x2"))  # phase 13 (a), (b)
+# Phase 13's requests on a 12 s clip: greedy on the lone path (language
+# pinned, so the raw window decodes on the engine's own class), two at once
+# with the language detected (each window's cross K/V from the detection's
+# encode, through the batcher's pool), and beam 5 through the gang; (b)
+# runs the lone request only.
+MESH_REQUESTS = (("lone", dict(language="en", beam_size=1), 1),
+                 ("pair", dict(language="auto", beam_size=1), 2),
+                 ("beam", dict(language="en", beam_size=BEAM), 1))
+
+
+def mesh_settings(shape: str):
+    """Phase 13's engine settings: phase 6's (int4 compute, VAD,
+    diarization, token timestamps, relaxed gates) at two requests at a
+    time, on the mesh ``shape``."""
+    from sentiric_stt_whisper_service_tpu_torch.config import Settings
+
+    return Settings(device="auto", compute_type="int4", enable_vad=True,
+                    enable_diarization=True, language="auto", no_timestamps=False,
+                    model_filename="ggml-large-v3.bin", parallel_requests=2, max_batch_size=2,
+                    mesh_shape=shape, quality_gate="off", logprob_threshold=-1e9,
+                    no_speech_threshold=1.0, min_segment_avg_prob=0.0)
+
+
+def mesh_requests(torch, engine, pcm, requests) -> dict:
+    """``requests`` through ``engine.transcribe_pcm16`` (each label's
+    requests at once, from threads): per label its walls, stage splits,
+    segments, each decode's (sample_begin, sampled row, average
+    log-probability), recorded at ``_decode_one``, and each alignment
+    pass's scores (the DTW's input), recorded at ``times_of_scores``."""
+    import threading
+
+    from sentiric_stt_whisper_service_tpu_torch.runtime import engine as eng_mod
+
+    local = threading.local()
+    decodes, scores = {}, {}
+    decode_one, times_of_scores = engine._decode_one, eng_mod.times_of_scores
+
+    def scored(window_scores, *a, **kw):
+        scores.setdefault(local.label, []).append(window_scores.copy())
+        return times_of_scores(window_scores, *a, **kw)
+
+    def recording(xa_kv, init_tokens, sample_begin, *a, **kw):
+        res = decode_one(xa_kv, init_tokens, sample_begin, *a, **kw)
+        if res is not None:
+            n = int(res.lengths[0])
+            decodes.setdefault(local.label, []).append(
+                (sample_begin, res.tokens[0][:n].copy(), float(res.avg_logprobs[0])))
+        return res
+
+    from sentiric_stt_whisper_service_tpu_torch.runtime import PerformanceMetrics, RequestOptions
+
+    engine._decode_one = recording
+    eng_mod.times_of_scores = scored
+    out = {}
+    try:
+        for label, opts, n in requests:
+            results = [None] * n
+
+            def go(i, label=label, opts=opts):
+                local.label = label
+                m = PerformanceMetrics()
+                t = time.perf_counter()
+                res = engine.transcribe_pcm16(pcm, 16000, RequestOptions(
+                    max_decode_tokens=MESH_TOKENS, **opts), m)
+                torch.cuda.synchronize()
+                results[i] = (time.perf_counter() - t, m.stages_ms, [
+                    (r.text, r.t0, r.t1, r.language, [(k.text, k.t0, k.t1) for k in r.tokens])
+                    for r in res])
+
+            threads = [threading.Thread(target=go, args=(i,)) for i in range(n)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+            require(all(r is not None for r in results), f"phase 13 {label}: a request failed")
+            out[label] = {"walls": [r[0] for r in results], "stages": [r[1] for r in results],
+                          "segments": [r[2] for r in results], "decodes": decodes.get(label, []),
+                          "scores": scores.get(label, [])}
+    finally:
+        del engine._decode_one
+        eng_mod.times_of_scores = times_of_scores
+    return out
+
+
+def encoded_window(torch, cfg, model, pcm):
+    """The encoder output [1, 1500, d] of the 12 s clip's window."""
+    import numpy as np
+
+    from sentiric_stt_whisper_service_tpu_torch.models.whisper import encoder_apply
+    from sentiric_stt_whisper_service_tpu_torch.ops import N_SAMPLES, compute_log_mel
+
+    window = np.zeros(N_SAMPLES, np.float32)
+    x = np.asarray(pcm, np.int16).astype(np.float32)[:N_SAMPLES] / 32768.0
+    window[: x.shape[0]] = x
+    dev = model.decoder.pos_emb.device
+    with torch.inference_mode():
+        mel = compute_log_mel(torch.from_numpy(window[None]).to(dev), n_mels=cfg.n_mels,
+                              dtype=cfg.dtype)
+        return encoder_apply(cfg, model, mel)
+
+
+def align_sensitivity(torch, cfg, model, pcm, rows, eot) -> list:
+    """Per sampled row, max |diff| of the window's alignment scores (the
+    engine's pass over the row without its EOT) when every element of the
+    encoder output moves by one ulp (its lowest mantissa bit flipped): the
+    scores' own rounding sensitivity."""
+    import numpy as np
+
+    from sentiric_stt_whisper_service_tpu_torch.models.timestamps import window_scores
+    from sentiric_stt_whisper_service_tpu_torch.models.whisper import precompute_xa_kv
+
+    enc = encoded_window(torch, cfg, model, pcm).contiguous()
+    bits = {2: torch.int16, 4: torch.int32}[enc.element_size()]
+    flipped = (enc.view(bits) ^ 1).view(enc.dtype)
+    with torch.inference_mode():
+        slabs = [precompute_xa_kv(cfg, model, x, 4) for x in (enc, flipped)]
+        out = []
+        for row in rows:
+            toks = np.asarray(row, np.int64)
+            toks = toks[toks != eot]
+            a, b = (window_scores(cfg, model, slab, toks) for slab in slabs)
+            out.append(float(np.abs(a - b).max()))
+    return out
+
+
+def forced_logits(torch, cfg, model, pcm, rows) -> list:
+    """The teacher-forced logits [n - 1, V] of each sampled row over the
+    12 s window's int4 cross K/V (the slab of every phase 13 path; the
+    pool's int8 container holds the same values), with plain attention:
+    the yardstick for a divergence (phase 12 (b)'s drift)."""
+    from sentiric_stt_whisper_service_tpu_torch.models.whisper import (
+        decoder_apply,
+        init_kv_cache,
+        precompute_xa_kv,
+        text_heads,
+    )
+
+    import numpy as np
+
+    dev = model.decoder.pos_emb.device
+    enc = encoded_window(torch, cfg, model, pcm)
+    with torch.inference_mode():
+        slab = precompute_xa_kv(cfg, model, enc, 4)
+        out = []
+        for row in rows:
+            t = torch.from_numpy(np.asarray(row, np.int64)[None, :-1]).to(dev)
+            kv = init_kv_cache(cfg, 1, t.shape[1], device=dev, n_head=text_heads(cfg, model))
+            logits, _ = decoder_apply(cfg, model, t, 0, kv, slab)
+            out.append(logits[0].float().cpu())
+    return out
+
+
+def mesh_decode_check(torch, shape, label, yard, mesh, yard_forced, mesh_forced, margins_of):
+    """A mesh engine's decodes of one request against the yardstick's:
+    equal rows, or where one differs, for greedy the unsharded top-two
+    margin at its first differing token within twice the drift (the largest
+    difference of the two models' teacher-forced logits over the yardstick's
+    sampled positions: phase 12 (b)'s rule), for beam 5 (which ranks whole
+    hypotheses) the two chosen hypotheses' average log-probabilities within
+    four times the drift (each position's log-probability moves by at most
+    twice the drift). Returns (equal decodes, decodes)."""
+    sb, y_row, y_avg = yard
+    drift = (mesh_forced - yard_forced)[sb - 1:].abs().max().item()
+    equal = 0
+    for i, (sb_m, m_row, m_avg) in enumerate(mesh):
+        require(sb_m == sb, f"{shape} {label}: sample_begin {sb_m} != {sb}")
+        if len(m_row) == len(y_row) and (m_row == y_row).all():
+            equal += 1
+            continue
+        n = min(len(m_row), len(y_row))
+        j = next((p for p in range(sb, n) if m_row[p] != y_row[p]), n)
+        if label == "beam":
+            gap = abs(m_avg - y_avg)
+            print(f"  {shape} {label}: the chosen hypothesis differs from token {j - sb}; "
+                  f"average log-probabilities {m_avg:.5f} vs {y_avg:.5f} (gap {gap:.5f}, bound "
+                  f"4 x drift {4 * drift:.5f})")
+            require(gap <= 4 * drift, f"{shape} {label}: the beam's choice differs at an average "
+                                      f"log-probability gap {gap:.5f} > 4 x drift {4 * drift:.5f}")
+            continue
+        margin = margins_of(j - sb)
+        print(f"  {shape} {label} decode {i}: differs from token {j - sb}, where the unsharded "
+              f"top-two margin is {margin:.4f} (bound twice the drift, {2 * drift:.4f})")
+        require(margin <= 2 * drift,
+                f"{shape} {label}: decode {i} differs at token {j - sb} with a margin "
+                f"{margin:.4f} above twice the drift {drift:.4f}")
+    return equal, len(mesh), drift
+
+
+def mesh_phase(torch, np, model, paths, card) -> None:
+    """Phase 13: the engine over a mesh on the one card (see the module
+    docstring)."""
+    import os
+    import socket
+    import tempfile
+
+    from sentiric_stt_whisper_service_tpu_torch.models import TokenIds, build_suppress_mask
+    from sentiric_stt_whisper_service_tpu_torch.models.sampling import logit_processor
+    from sentiric_stt_whisper_service_tpu_torch.runtime import SttEngine
+    from sentiric_stt_whisper_service_tpu_torch.tokenizer import fallback_tokenizer
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 13)
+    pcm = (voiced_like(rng, 12.0) * 32767).astype(np.int16)
+    yard_engine = SttEngine(mesh_settings("1"), model_name="large-v3", params=model)
+    cfg = yard_engine.cfg
+    mesh_requests(torch, yard_engine, pcm, MESH_REQUESTS)  # its classes captured first
+    yard = mesh_requests(torch, yard_engine, pcm, MESH_REQUESTS)
+    yard_engine.shutdown()
+    del yard_engine
+    rows = {label: yard[label]["decodes"][0][1] for label, _, _ in MESH_REQUESTS}
+    yard_forced = dict(zip(rows, forced_logits(torch, cfg, model, pcm, list(rows.values()))))
+    tok = fallback_tokenizer(cfg.n_vocab)
+    ids = TokenIds.from_tokenizer(tok)
+    sensitivity = dict(zip(rows, align_sensitivity(torch, cfg, model, pcm,
+                                                   list(rows.values()), ids.eot)))
+    sup = torch.from_numpy(build_suppress_mask(cfg.n_vocab, ids, tok.non_speech_tokens))
+    process = logit_processor(cfg.n_vocab, ids, sup, True)
+
+    def margins(label):
+        sb, row = yard[label]["decodes"][0][:2]
+        forced = yard_forced[label][sb - 1:]
+        tokens = torch.from_numpy(np.asarray(row, np.int64))[None]
+
+        def margin_at(j):
+            top = process(forced[j][None], tokens, torch.tensor([sb + j]),
+                          torch.tensor([sb])).topk(2).values[0]
+            return (top[0] - top[1]).item()
+
+        return margin_at
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        torch.save({"pcm": pcm, "rows": rows}, tmp / "ref.pt")
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                   "--mesh-worker", str(rank), str(port), str(tmp)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                                  env=dict(os.environ, OMP_NUM_THREADS="4"))
+                 for rank in range(2)]
+        try:
+            logs = [p.communicate(timeout=600)[0] for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+        for rank, (p, log) in enumerate(zip(procs, logs)):
+            require(p.returncode == 0, f"mesh worker {rank} exited {p.returncode}:\n{log[-4000:]}")
+        outs = [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    print(f"  two ranks (gloo, one card), both meshes: {time.perf_counter() - t0:.1f} s, "
+          f"process start, engine builds and the kernel checks included [{card}]")
+    for path, shape in MESH_SHAPES:
+        labels = [lb for lb, _, _ in MESH_REQUESTS] if path == "engine_tp" else ["lone"]
+        got = outs[0][path]
+        for label in labels:
+            y, m = yard[label], got["requests"][label]
+            equal, total, drift = mesh_decode_check(
+                torch, shape, label, y["decodes"][0], m["decodes"], yard_forced[label],
+                got["forced"][label], margins(label))
+            same_segments = all(segs == y["segments"][0] for segs in m["segments"])
+            print(f"  [{path}] {label}: wall {', '.join(f'{w:.3f}' for w in m['walls'])} s "
+                  f"(unsharded {', '.join(f'{w:.3f}' for w in y['walls'])} s); {equal} of "
+                  f"{total} decodes equal the unsharded one's ({MESH_TOKENS}-token cap), "
+                  f"teacher-forced drift {drift:.4f}; segments "
+                  f"{'equal' if same_segments else 'differ'}; stages ms "
+                  f"{', '.join(f'{k} {v:.1f}' for k, v in m['stages'][0].items())} [{card}]")
+            if equal == total:  # then the segments too, and the alignment scores
+                want, bound_ = y["segments"][0], ALIGN_SLACK * sensitivity[label]
+                for segs, sc in zip(m["segments"], m["scores"]):
+                    require([s_[:4] + ([k[0] for k in s_[4]],) for s_ in segs]
+                            == [s_[:4] + ([k[0] for k in s_[4]],) for s_ in want],
+                            f"{shape} {label}: equal decodes, other segments")
+                    moved = max((max(abs(a[1] - b[1]), abs(a[2] - b[2]))
+                                 for mine_, theirs_ in zip(segs, want)
+                                 for a, b in zip(mine_[4], theirs_[4])), default=0)
+                    gap = float(np.abs(sc - y["scores"][0]).max())
+                    print(f"  {shape} {label}: alignment scores within {gap:.4f} of the "
+                          f"unsharded ones; one ulp of the encoder output moves those by "
+                          f"{sensitivity[label]:.4f} (bound {ALIGN_SLACK:g} x that, "
+                          f"{bound_:.4f}); token times moved by up to {moved} cs [{card}]")
+                    require(gap <= bound_, f"{shape} {label}: alignment scores off by "
+                                           f"{gap:.4f} > {bound_:.4f}")
+        for rank, out in enumerate(outs):
+            mine = out[path]
+            print(f"  [{path}] rank {rank}: {mine['heads']} decoder heads; peak device memory "
+                  f"{mine['peak'] / 2**30:.2f} GiB (this process); launches {mine['launches']}")
+            for name, (err, tol, shp) in mine["kernel_checks"].items():
+                print(f"  [{path}] rank {rank} {name} at the rank's shapes q {shp[0]}, "
+                      f"{shp[1]} (its last call): max_abs_err {err:.3e} against its plain "
+                      f"version (tol {tol:.2e}, as phase 3)")
+                require(err <= tol, f"{path} rank {rank}: {name} max_abs_err {err:.3e} > "
+                                    f"tol {tol:.2e}")
+        paths[path] = got["launches"]
+        names = ("log_mel", "flash_attention", "decode_attention_i4") + (
+            ("decode_attention", "beam_attention", "beam_cross_attention")
+            if path == "engine_tp" else ())
+        need_launched(paths, path, names)
+        for rank, out in enumerate(outs):
+            for name in names:
+                require(out[path]["launches"][name] > 0, f"{path} rank {rank}: {name} was not "
+                                                         "launched")
+        ch = got["channel"]
+        print(f"  [{path}] rank 0's replay channel on the lone request: {ch['decisions']} "
+              f"decisions in {ch['decision_s'] * 1e3:.1f} ms, "
+              f"{ch['decision_s'] * 1e3 / max(1, ch['steps']):.3f} ms a step of "
+              f"{ch['decode_ms'] / max(1, ch['steps']):.1f} ms "
+              f"({100 * ch['decision_s'] * 1e3 / max(ch['decode_ms'], 1e-9):.2f} % of the "
+              f"decode); {ch['ops']} op messages in {ch['op_s'] * 1e3:.1f} ms (each waits for "
+              f"rank 1 to finish the op before; both ranks' kernels share the one card) "
+              f"[{card}]")
+    for rank, out in enumerate(outs):
+        checked = out["engine_sp"]["kernel_checks"]
+        shp = checked["K2 flash_attention"][2] if "K2 flash_attention" in checked else None
+        require(shp is not None and 2 * shp[0][2] == shp[1][2] == cfg.n_audio_ctx,
+                f"engine_sp rank {rank}: K2's last call was not a rank's half of the rows "
+                f"against every key: {shp}")
+    print(f"  phase 13 wall {time.perf_counter() - t_phase:.1f} s [{card}]")
+
+
+def mesh_worker(torch, rank: int, port: int, tmp: Path) -> int:
+    """``--mesh-worker``: one rank of phase 13 (see ``mesh_phase``). For each
+    mesh it builds the engine on its shard; rank 0 runs the requests and the
+    others follow; then every rank computes the teacher-forced logits of the
+    yardstick's rows on its shard (one op of the channel) and holds K2-K6
+    against their plain versions on their last call's inputs."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from sentiric_stt_whisper_service_tpu_torch import kernels, parallel
+    from sentiric_stt_whisper_service_tpu_torch.models import config_for, init_params
+    from sentiric_stt_whisper_service_tpu_torch.models import whisper as whisper_mod
+    from sentiric_stt_whisper_service_tpu_torch.models.whisper import text_heads
+    from sentiric_stt_whisper_service_tpu_torch.ops import beam_attention as ba
+    from sentiric_stt_whisper_service_tpu_torch.ops import decode_attention as da
+    from sentiric_stt_whisper_service_tpu_torch.ops.flash_attention import attention_reference
+    from sentiric_stt_whisper_service_tpu_torch.ops.quant import quantize_params, unpack_nibbles_i8
+    from sentiric_stt_whisper_service_tpu_torch.runtime import SttEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ref = torch.load(tmp / "ref.pt", weights_only=False)
+    parallel.initialize_distributed(f"127.0.0.1:{port}", 2, rank, backend="gloo")
+    kernels.lib()
+    cfg = config_for("large-v3")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED)
+    with torch.inference_mode():
+        full = quantize_params(init_params(cfg, g))  # phase 4's model, q/k/v unfused
+
+    last = {}  # kernel -> (its function, q copied, the other inputs, keywords)
+    patched = {"K2 flash_attention": "flash_attention",
+               "K3 decode_attention int8": "decode_attention",
+               "K4 decode_attention_i4": "decode_attention_i4",
+               "K5 beam_attention": "beam_attention",
+               "K6 beam_cross_attention_i4": "beam_cross_attention_i4"}
+    originals = {attr: getattr(whisper_mod, attr) for attr in patched.values()}
+
+    def keep(name, fn):
+        def call(q, *rest, **kw):
+            last[name] = (fn, q.clone(), rest, kw)
+            return fn(q, *rest, **kw)
+        return call
+
+    def plain(name, q, rest, kw):
+        if name.startswith("K2"):
+            return attention_reference(q, *rest)
+        if name.startswith("K3"):
+            return da.decode_attention_reference(q, *rest, **kw)
+        if name.startswith("K4"):
+            k, v, ks, vs = rest
+            return da.decode_attention_reference(q, unpack_nibbles_i8(k), unpack_nibbles_i8(v),
+                                                 ks, vs, **kw)
+        if name.startswith("K5"):
+            k, v, anc, K = rest
+            return ba.beam_attention_reference(q, k, v, anc, K, **kw)
+        k, v, ks, vs = rest
+        return ba.beam_cross_attention_reference(q, unpack_nibbles_i8(k), unpack_nibbles_i8(v),
+                                                 ks, vs, **kw)
+
+    out = {}
+    for path, shape in MESH_SHAPES:
+        last.clear()
+        for name, attr in patched.items():
+            setattr(whisper_mod, attr, keep(name, originals[attr]))
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            engine = SttEngine(mesh_settings(shape), model_name="large-v3", params=full)
+            mine = {"heads": text_heads(cfg, engine.params)}
+
+            def forced_op(pcm, rows, own=None, mine=mine, engine=engine):
+                mine["launches"] = dict(kernels.LAUNCHES)  # the path's, before this pass
+                return forced_logits(torch, cfg, engine.params, pcm, rows)
+
+            engine._replay.register("forced", forced_op)
+            kernels.reset_launch_counts()
+            if engine.is_leader:
+                requests = MESH_REQUESTS if path == "engine_tp" else MESH_REQUESTS[:1]
+                if path == "engine_sp":  # graphed: its classes captured first
+                    mesh_requests(torch, engine, ref["pcm"], requests)
+                stats = engine._replay.stats
+                before = dataclasses.astuple(stats)
+                lone = mesh_requests(torch, engine, ref["pcm"], requests[:1])
+                mine["channel"] = {"ops": stats.ops - before[0],
+                                   "op_s": stats.op_seconds - before[1],
+                                   "decisions": stats.decisions - before[2],
+                                   "decision_s": stats.decision_seconds - before[3],
+                                   "decode_ms": lone["lone"]["stages"][0].get("decode", 0.0),
+                                   "steps": MESH_TOKENS}
+                mine["requests"] = {**lone, **mesh_requests(torch, engine, ref["pcm"],
+                                                             requests[1:])}
+                engine.shutdown()
+                labels = [lb for lb, _, _ in requests]
+                forced = engine._replay.call("forced", ref["pcm"],
+                                             [ref["rows"][lb] for lb in labels])
+                mine["forced"] = dict(zip(labels, forced))
+                engine.close()
+            else:
+                engine.follow()
+        finally:
+            for attr, fn in originals.items():
+                setattr(whisper_mod, attr, fn)
+        checks = {}
+        for name, (fn, q, rest, kw) in last.items():
+            got, want = fn(q, *rest, **kw), plain(name, q, rest, kw)
+            steps = 2 ** -5 if name[:2] in ("K2", "K6") else 2 ** -6
+            err = (got.float() - want.float()).abs().max().item()
+            checks[name] = (err, steps * want.float().abs().max().item(),
+                            [tuple(q.shape), tuple(rest[0].shape)])
+        mine["kernel_checks"] = checks
+        mine["peak"] = torch.cuda.max_memory_allocated()
+        out[path] = mine
+        del engine
+        last.clear()
+        torch.cuda.empty_cache()
     torch.save(out, tmp / f"rank{rank}.pt")
     dist.barrier()
     dist.destroy_process_group()

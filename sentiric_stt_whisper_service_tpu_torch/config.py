@@ -14,9 +14,11 @@ What the port reads differently:
   * ``flash_attn``: the encoder's attention always runs the K2 kernel on the
     card; ``FLASH_ATTN=0`` has no effect there (the engine says so in its
     log).
-  * a ``mesh_shape`` other than ``"1"`` is not ported yet for the engine
-    (ROADMAP queue 1 item 15b); the engine refuses it. ``parallel/`` shards
-    a model for training and ``decode_window``.
+  * ``mesh_shape`` other than ``"1"`` takes one process per device of the
+    mesh (joined by ``parallel.maybe_initialize_distributed``): rank 0
+    serves and the other ranks replay its device operations
+    (``runtime/engine.py``, ``parallel/replay.py``); a draft model together
+    with a mesh is refused.
 """
 
 from __future__ import annotations

@@ -8,10 +8,12 @@
 // too.
 //
 // What it computes, per (batch*head, query row): softmax(q . k^T) . v over the
-// L key positions, with q and k each pre-scaled by d^-0.25 by the caller, an
-// fp32 softmax and fp32 accumulation. Key columns >= L are masked (1500 is not
-// a multiple of the 64-column tile). The [L, L] score matrix never reaches
-// device memory.
+// Lk key positions, with q and k each pre-scaled by d^-0.25 by the caller, an
+// fp32 softmax and fp32 accumulation. There are Lq query rows per head: Lq = Lk
+// for the encoder on one device, Lq = Lk / sp for a rank of a sequence-parallel
+// mesh, whose rows attend to the keys of every rank. Key columns >= Lk are masked
+// (1500 is not a multiple of the 64-column tile). The [Lq, Lk] score matrix never
+// reaches device memory.
 //
 // Bound on the H100: at the encoder's shape ([4, 20, 1500, 64]) the two
 // products are 4 * 80 * 1500^2 * 64 = 46 GFLOP against 61 MB of q, k, v and
@@ -22,7 +24,7 @@
 // Design: one block of two warpgroups (eight warps) per (batch*head, 128-row
 // query tile), so each staged K/V tile serves 128 rows (12 x 80 = 960 blocks at
 // the encoder's shape). The K/V tiles of 64 keys go through a ring of four
-// stages in shared memory, filled by cp.async 16-byte copies (rows past L zero-
+// stages in shared memory, filled by cp.async 16-byte copies (rows past Lk zero-
 // filled) two tiles ahead, so the next tiles load while the current one is
 // multiplied; one __syncthreads per tile. Q, K and V stay row-major in shared
 // memory in the 128-byte swizzle of the tensor cores' shared-memory descriptors
@@ -164,7 +166,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Stage rows [row0, row0 + ROWS) of a [L, 64] head into a swizzled tile,
+// Stage rows [row0, row0 + ROWS) of an [L, 64] head into a swizzled tile,
 // rows past L as zeros. Each thread copies ROWS * 8 / THREADS chunks.
 template <int ROWS>
 __device__ __forceinline__ void load_rows(uint32_t dst, const __nv_bfloat16* src, int row0, int L) {
@@ -179,30 +181,31 @@ __device__ __forceinline__ void load_rows(uint32_t dst, const __nv_bfloat16* src
 }
 
 __global__ void __launch_bounds__(THREADS, 2)
-flash_attention_kernel(const __nv_bfloat16* __restrict__ q,  // [BH, L, D]
-                       const __nv_bfloat16* __restrict__ k,
-                       const __nv_bfloat16* __restrict__ v,
-                       __nv_bfloat16* __restrict__ o, int L) {
+flash_attention_kernel(const __nv_bfloat16* __restrict__ q,  // [BH, Lq, D]
+                       const __nv_bfloat16* __restrict__ k,  // [BH, Lk, D]
+                       const __nv_bfloat16* __restrict__ v,  // [BH, Lk, D]
+                       __nv_bfloat16* __restrict__ o, int Lq, int Lk) {
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t qs = (smem_u32(smem) + 1023u) & ~1023u;  // [BQ][D], swizzled
   const uint32_t ring = qs + Q_BYTES;                     // [STAGES][K, V][BK][D], swizzled
 
-  const size_t head = static_cast<size_t>(blockIdx.y) * L * D;
-  const __nv_bfloat16* kh = k + head;
-  const __nv_bfloat16* vh = v + head;
+  const size_t qhead = static_cast<size_t>(blockIdx.y) * Lq * D;
+  const size_t khead = static_cast<size_t>(blockIdx.y) * Lk * D;
+  const __nv_bfloat16* kh = k + khead;
+  const __nv_bfloat16* vh = v + khead;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int t = lane & 3;  // fragment column pair
   const uint32_t qw = qs + (warp / 4) * 64 * (D * 2);  // the warpgroup's 64 Q rows
   const int q0 = blockIdx.x * BQ;
-  const int n_tiles = (L + BK - 1) / BK;
+  const int n_tiles = (Lk + BK - 1) / BK;
 
   // Q joins the first tile's commit group.
-  load_rows<BQ>(qs, q + head, q0, L);
+  load_rows<BQ>(qs, q + qhead, q0, Lq);
 #pragma unroll
   for (int st = 0; st < AHEAD; ++st) {
     if (st < n_tiles) {
-      load_rows<BK>(ring + (2 * st) * TILE_BYTES, kh, st * BK, L);
-      load_rows<BK>(ring + (2 * st + 1) * TILE_BYTES, vh, st * BK, L);
+      load_rows<BK>(ring + (2 * st) * TILE_BYTES, kh, st * BK, Lk);
+      load_rows<BK>(ring + (2 * st + 1) * TILE_BYTES, vh, st * BK, Lk);
     }
     cp_async_commit();
   }
@@ -227,8 +230,8 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,  // [BH, L, D]
       const int nx = j + AHEAD;
       if (nx < n_tiles) {
         const int slot = nx % STAGES;
-        load_rows<BK>(ring + (2 * slot) * TILE_BYTES, kh, nx * BK, L);
-        load_rows<BK>(ring + (2 * slot + 1) * TILE_BYTES, vh, nx * BK, L);
+        load_rows<BK>(ring + (2 * slot) * TILE_BYTES, kh, nx * BK, Lk);
+        load_rows<BK>(ring + (2 * slot + 1) * TILE_BYTES, vh, nx * BK, Lk);
       }
       cp_async_commit();  // an empty group keeps the wait count uniform
     }
@@ -250,12 +253,12 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,  // [BH, L, D]
 
     // Mask the ragged edge, then the online-softmax update.
     const int kv0 = j * BK;
-    if (kv0 + BK > L) {  // the ragged last tile only
+    if (kv0 + BK > Lk) {  // the ragged last tile only
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt) {
         const int col = kv0 + nt * 8 + t * 2;
-        if (col >= L) s[4 * nt] = s[4 * nt + 2] = -INFINITY;
-        if (col + 1 >= L) s[4 * nt + 1] = s[4 * nt + 3] = -INFINITY;
+        if (col >= Lk) s[4 * nt] = s[4 * nt + 2] = -INFINITY;
+        if (col + 1 >= Lk) s[4 * nt + 1] = s[4 * nt + 3] = -INFINITY;
       }
     }
     float mx0 = m0, mx1 = m1;
@@ -269,7 +272,7 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,  // [BH, L, D]
       mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
       mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
     }
-    // Every tile holds at least one key < L, so mx0/mx1 are finite here.
+    // Every tile holds at least one key < Lk, so mx0/mx1 are finite here.
     const float a0 = ex2((m0 - mx0) * LOG2E), a1 = ex2((m1 - mx1) * LOG2E);
     m0 = mx0;
     m1 = mx1;
@@ -336,12 +339,12 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,  // [BH, L, D]
     asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(qs + swz(r0 + 8, nt) + c), "r"(w1) : "memory");
   }
   __syncwarp();
-  __nv_bfloat16* oh = o + head;
+  __nv_bfloat16* oh = o + qhead;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int idx = lane + i * 32;  // 16 rows x 8 chunks
     const int r = warp * 16 + (idx >> 3), c = idx & 7;
-    if (q0 + r < L) {
+    if (q0 + r < Lq) {
       uint4 val;
       asm volatile("ld.shared.v4.b32 {%0,%1,%2,%3}, [%4];\n"
                    : "=r"(val.x), "=r"(val.y), "=r"(val.z), "=r"(val.w)
@@ -355,15 +358,15 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,  // [BH, L, D]
 }  // namespace
 
 extern "C" int sstw_flash_attention(const void* q, const void* k, const void* v, void* o,
-                                    int bh, int L, void* stream) {
+                                    int bh, int Lq, int Lk, void* stream) {
   // Above 48 KB a block's dynamic shared memory needs this opt-in, once.
   static const cudaError_t opt_in = cudaFuncSetAttribute(
       flash_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
-  if (bh < 1 || L < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((L + BQ - 1) / BQ, bh);
+  if (bh < 1 || Lq < 1 || Lk < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((Lq + BQ - 1) / BQ, bh);
   flash_attention_kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), L);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Lq, Lk);
   return static_cast<int>(cudaGetLastError());
 }

@@ -69,7 +69,7 @@ LAUNCHES = {
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "sstw_log_mel": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "sstw_flash_attention": [_P, _P, _P, _P, _I, _I, _P],
+    "sstw_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _P],
     "sstw_decode_attention_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "sstw_decode_attention_i8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "sstw_decode_attention_i4": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],

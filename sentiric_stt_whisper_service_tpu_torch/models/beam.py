@@ -48,7 +48,7 @@ from typing import Optional
 
 import torch
 
-from .graphs import DecodeGraphs, read_bound, run_window, to_host, window_loop
+from .graphs import DecodeGraphs, graphable, read_bound, run_window, to_host, window_loop
 from .sampling import (
     NEG_INF,
     SYNC_STEPS,
@@ -60,7 +60,7 @@ from .sampling import (
     self_cache_len,
     xa_signature,
 )
-from .whisper import WhisperConfig, decoder_apply, decoder_step_beam, init_kv_cache
+from .whisper import WhisperConfig, decoder_apply, decoder_step_beam, init_kv_cache, text_heads
 
 READ_BUCKET = 128  # rows: the JAX package's self-cache read buckets
 
@@ -165,12 +165,14 @@ def decode_window_beam(
     cache_len = self_cache_len(ctx, max_len)
     bounds = read_bounds(cache_len, cache_buckets)
     inputs = {"xa": xa_kv, "suppress": suppress_mask}
+    n_head = text_heads(cfg, model)
+    graph = graph and graphable(model)
 
     def make(inp, _gen):
         f32 = dict(dtype=torch.float32, device=dev)
         state = _BeamState(
             tokens=torch.zeros((B * K, ctx), dtype=torch.int64, device=dev),
-            kv=init_kv_cache(cfg, B * K, cache_len, dtype=kv_dtype, device=dev),
+            kv=init_kv_cache(cfg, B * K, cache_len, dtype=kv_dtype, device=dev, n_head=n_head),
             anc=torch.zeros((B, K, K, cache_len), dtype=torch.bool, device=dev),
             pos=_scalar(0, torch.int64, dev),
             until=_scalar(0, torch.int64, dev),
@@ -210,7 +212,8 @@ def _beam_setup(cfg, model, st: _BeamState, xa_kv, tokens_init, sample_begin, so
     B = tokens_init.shape[0]
     dev = tokens_init.device
     tokens = tokens_init.to(torch.int64)
-    kv_b = init_kv_cache(cfg, B, st.anc.shape[-1], dtype=kv_dtype, device=dev)
+    kv_b = init_kv_cache(cfg, B, st.anc.shape[-1], dtype=kv_dtype, device=dev,
+                         n_head=text_heads(cfg, model))
     prefill_logits, kv_b = decoder_apply(cfg, model, tokens[:, :prefill_len], 0, kv_b, xa_kv)
     for name, t in kv_b.items():
         slots = st.kv[name].view(t.shape[0], B, K, *t.shape[2:])

@@ -53,6 +53,7 @@ from typing import Callable, Optional
 import torch
 
 from .. import kernels
+from ..parallel.replay import current as replay_channel
 
 
 class DeviceLock:
@@ -303,6 +304,14 @@ class DecodeGraphs:
                 for key, loop in self._loops.items()]
 
 
+def graphable(model) -> bool:
+    """False for a tensor-parallel shard (``parallel/mesh.shard_params``):
+    its all-reduces over gloo run on the host, where a CUDA graph cannot
+    capture them, so its steps run eagerly."""
+    mesh = getattr(model, "mesh", None)
+    return mesh is None or mesh.group("tp") is None
+
+
 def window_loop(device: torch.device, graph: bool, graphs: Optional[DecodeGraphs], key,
                 make: Callable, inputs: dict, bounds, generator) -> StepLoop:
     """The loop that decodes one window on ``device``: eager over the
@@ -324,7 +333,19 @@ def run_window(loop: StepLoop, start: int, hard_stop: int, bounds, finished: Cal
     advances it by one on the device too, until the step's own flag stops
     it, so a replay past the end changes nothing that the result reads.
     An eager loop checks ``finished()`` after every step as well. Returns
-    False if aborted."""
+    False if aborted.
+
+    Inside an op of a mesh's replay channel (``parallel/replay.py``) the
+    window's stop is rank 0's: ``finished()`` answers there and every rank
+    takes its answer, so that every rank runs the same steps (the caller
+    routes ``should_abort`` the same way)."""
+    channel = replay_channel()
+    if channel is not None:
+        own_finished = finished
+
+        def finished() -> bool:
+            return channel.decide(own_finished)
+
     pos = start
     while pos < hard_stop:
         if should_abort is not None and should_abort():

@@ -35,7 +35,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from .graphs import DecodeGraphs, run_window, to_host, window_loop
+from .graphs import DecodeGraphs, graphable, run_window, to_host, window_loop
 from .whisper import WhisperConfig, decoder_apply, decoder_step, init_kv_cache, text_heads
 
 # Steps between two reads of the device when nothing is polled: each read
@@ -299,8 +299,7 @@ def decode_window(
     sampled = float(temperature) > 0.0
     kv_dtype = self_dtype or cfg.dtype
     n_head = text_heads(cfg, model)
-    mesh = getattr(model, "mesh", None)
-    graph = graph and (mesh is None or mesh.group("tp") is None)
+    graph = graph and graphable(model)
     inputs = {"xa": xa_kv, "suppress": suppress_mask,
               "temperature": _scalar(float(temperature), torch.float32, dev)}
 
@@ -487,7 +486,7 @@ def detect_language(cfg: WhisperConfig, model, xa_kv: dict, sot: int, lang_begin
     ``detect_language``)."""
     B = next(iter(xa_kv.values())).shape[1]
     dev = next(iter(xa_kv.values())).device
-    kv = init_kv_cache(cfg, B, 64, device=dev)
+    kv = init_kv_cache(cfg, B, 64, device=dev, n_head=text_heads(cfg, model))
     tokens = torch.full((B, 1), sot, dtype=torch.int64, device=dev)
     logits, _ = decoder_apply(cfg, model, tokens, 0, kv, xa_kv)
     return torch.softmax(logits[:, 0, lang_begin:lang_begin + n_langs], dim=-1)

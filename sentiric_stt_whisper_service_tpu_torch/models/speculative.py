@@ -42,7 +42,7 @@ from typing import Optional
 
 import torch
 
-from .graphs import DecodeGraphs, StepLoop, to_host, window_loop
+from .graphs import DecodeGraphs, StepLoop, graphable, to_host, window_loop
 from .sampling import (
     DecodeResult,
     TokenIds,
@@ -51,7 +51,14 @@ from .sampling import (
     write_column,
     xa_signature,
 )
-from .whisper import WhisperConfig, decoder_apply, decoder_step, decoder_verify, init_kv_cache
+from .whisper import (
+    WhisperConfig,
+    decoder_apply,
+    decoder_step,
+    decoder_verify,
+    init_kv_cache,
+    text_heads,
+)
 
 # Rounds between two reads of the device: a round emits 1 to gamma + 1
 # tokens, and the rounds replayed after the window ends change nothing.
@@ -221,6 +228,7 @@ def decode_window_spec(
     dev = tokens_init.device
     kv_dtype = self_dtype or cfg.dtype
     inputs = {"xa": xa_kv, "dxa": draft_xa_kv, "suppress": suppress_mask}
+    graph = graph and graphable(model) and graphable(draft)
 
     def make(inp, _generator):
         def scalar(dtype):
@@ -228,9 +236,10 @@ def decode_window_spec(
 
         state = _SpecState(
             tokens=torch.zeros((1, ctx), dtype=torch.int64, device=dev),
-            kv_t=init_kv_cache(cfg, 1, ctx, dtype=kv_dtype, device=dev),
+            kv_t=init_kv_cache(cfg, 1, ctx, dtype=kv_dtype, device=dev,
+                               n_head=text_heads(cfg, model)),
             kv_d=init_kv_cache(draft_cfg, 1, ctx, dtype=self_dtype or draft_cfg.dtype,
-                               device=dev),
+                               device=dev, n_head=text_heads(draft_cfg, draft)),
             pos=scalar(torch.int64), until=scalar(torch.int64),
             sample_begin=scalar(torch.int64), done=scalar(torch.bool),
             sum_lp=scalar(torch.float32),

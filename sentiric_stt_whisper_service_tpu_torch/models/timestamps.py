@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from .graphs import to_device, to_host
-from .whisper import WhisperConfig, decoder_apply, init_kv_cache
+from .whisper import WhisperConfig, decoder_apply, init_kv_cache, text_heads
 
 AUDIO_TIME_PER_FRAME = 0.02  # one encoder position = 20 ms
 
@@ -39,7 +39,8 @@ def alignment_scores(
     reduced collection keeps one [B, T, F] fp32 accumulator, never the
     stacked [L, B, H, T, F] weights."""
     B, T = tokens.shape
-    kv = init_kv_cache(cfg, B, max(64, -(-T // 64) * 64), device=tokens.device)
+    kv = init_kv_cache(cfg, B, max(64, -(-T // 64) * 64), device=tokens.device,
+                       n_head=text_heads(cfg, model))
     _, _, w = decoder_apply(
         cfg, model, tokens, 0, kv, xa_kv,
         collect_cross_attn=True,
@@ -138,12 +139,24 @@ def compute_token_times(
 ) -> np.ndarray:
     """[n_sampled, 2] start/end seconds for the sampled tokens of one
     window (B=1 path used by the engine)."""
+    return times_of_scores(window_scores(cfg, model, xa_kv, full_tokens), sample_begin,
+                           n_audio_frames)
+
+
+def window_scores(cfg: WhisperConfig, model, xa_kv: dict, full_tokens: np.ndarray) -> np.ndarray:
+    """The device half of ``compute_token_times``: the alignment scores
+    [T, F] of one window's T tokens, on the host."""
     T = len(full_tokens)
     padded = np.zeros((min(align_bucket(T), cfg.n_text_ctx),), np.int64)
     padded[:T] = full_tokens
     device = next(iter(xa_kv.values())).device
-    scores = to_host(alignment_scores(cfg, model, xa_kv, to_device(padded[None], device))[0]).numpy()
-    sampled_scores = scores[sample_begin:T]
+    scores = alignment_scores(cfg, model, xa_kv, to_device(padded[None], device))[0]
+    return to_host(scores).numpy()[:T]
+
+
+def times_of_scores(scores: np.ndarray, sample_begin: int, n_audio_frames: int) -> np.ndarray:
+    """The host half: [n_sampled, 2] token times from ``window_scores``."""
+    sampled_scores = scores[sample_begin:]
     if sampled_scores.shape[0] == 0:
         return np.zeros((0, 2))
     return token_boundaries(sampled_scores, n_audio_frames)

@@ -427,10 +427,12 @@ def mha(q, k, v, n_head: int):
     """Unmasked multi-head attention, q [B, T, d], k, v [B, S, d], with
     (d_head)^-0.25 on both q and k.
 
-    Long sequences (the encoder's 1500 positions, S = T) go to
-    ``ops/flash_attention``: K2 on a CUDA tensor, its plain version on a CPU
-    tensor; with grad enabled through ``FlashAttention`` (K2 forward, plain
-    backward)."""
+    Long sequences go to ``ops/flash_attention``: K2 on a CUDA tensor, its
+    plain version on a CPU tensor; with grad enabled through
+    ``FlashAttention`` (K2 forward, plain backward). The test reads the
+    global length S, as the JAX package's ``mha`` reads its global T: the
+    encoder's 1500 positions (S = T on one device; T = S / sp query rows on a
+    rank of an "sp" mesh, against the S gathered keys)."""
     b, t, d = q.shape
     scale = (d // n_head) ** -0.25
 
@@ -438,7 +440,7 @@ def mha(q, k, v, n_head: int):
         return _split_heads(x, n_head).transpose(1, 2)
 
     qh, kh, vh = to_heads(q) * scale, to_heads(k) * scale, to_heads(v)
-    if t >= 512 and k.shape[1] == t:
+    if k.shape[1] >= 512:
         qkv = (qh.contiguous(), kh.contiguous(), vh.contiguous())
         out = FlashAttention.apply(*qkv) if torch.is_grad_enabled() else flash_attention(*qkv)
     else:
@@ -635,7 +637,10 @@ def decoder_apply(
     [L, B, H, T, F] fp32, or with ``cross_attn_layer_begin`` the reduced
     form the alignment pass reads, the mean over heads and over layers
     ≥ ``cross_attn_layer_begin``, [B, T, F], accumulated layer by layer (the
-    JAX package's forms). Both run the plain cross-attention, T = 1 too."""
+    JAX package's forms). Both run the plain cross-attention, T = 1 too. A
+    tensor-parallel shard returns the same weights as the whole model: the
+    reduced form sums its heads and all-reduces the sum over tp before the
+    mean over ``n_text_head``, the stacked form all-gathers the heads."""
     dec = model.decoder
     B, T = tokens.shape
     reduced = collect_cross_attn and cross_attn_layer_begin is not None
@@ -652,6 +657,7 @@ def decoder_apply(
 
     h = text_heads(cfg, model)
     scale = (cfg.n_text_state // cfg.n_text_head) ** -0.25
+    tp = None if model.mesh is None else model.mesh.group("tp")
 
     def to_heads(y):  # [B,T,d] → head-major [B,H,T,c]
         return _split_heads(y, h).transpose(1, 2)
@@ -675,7 +681,8 @@ def decoder_apply(
         x = x + dense(ca.transpose(1, 2).reshape(B, T, -1), layer.cross_attn.o)
         if reduced:
             if li >= cross_attn_layer_begin:
-                acc = w.mean(dim=1) if acc is None else acc + w.mean(dim=1)
+                part = w.mean(dim=1) if tp is None else w.sum(dim=1)
+                acc = part if acc is None else acc + part
         elif collect_cross_attn:
             weights.append(w)
 
@@ -688,8 +695,16 @@ def decoder_apply(
         n_sel = max(1, cfg.n_text_layer - cross_attn_layer_begin)
         if acc is None:  # no layer at or above the threshold: zeros, as the JAX package
             acc = torch.zeros_like(w[:, 0])
+        elif tp is not None:  # every head's sum, then the mean over all of them
+            dist.all_reduce(acc, group=tp)
+            acc = acc / cfg.n_text_head
         return logits, kv_cache, acc / n_sel
-    return logits, kv_cache, torch.stack(weights)
+    stacked = torch.stack(weights)  # [L, B, H, T, F]
+    if tp is not None:
+        parts = [torch.empty_like(stacked) for _ in range(dist.get_world_size(tp))]
+        dist.all_gather(parts, stacked.contiguous(), group=tp)
+        stacked = torch.cat(parts, dim=2)
+    return logits, kv_cache, stacked
 
 
 def pos_index(pos, device) -> torch.Tensor:

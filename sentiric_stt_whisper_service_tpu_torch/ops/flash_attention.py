@@ -1,10 +1,12 @@
 """Flash self-attention for the Whisper encoder (K2): the wrapper of
 ``csrc/flash_attention.cu`` and its plain version.
 
-The kernel keeps each query tile's scores on chip: the [B, H, L, L] score
-tensor never reaches device memory. Interface: head-major [B, H, L, d], the
-layout of the JAX package's ``ops/flash_attention.py``, with q and k each
-pre-scaled by d^-0.25 by the caller. A CPU tensor takes
+The kernel keeps each query tile's scores on chip: the [B, H, Lq, Lk] score
+tensor never reaches device memory. Interface: head-major q [B, H, Lq, d]
+and k, v [B, H, Lk, d], the layout of the JAX package's
+``ops/flash_attention.py``, with q and k each pre-scaled by d^-0.25 by the
+caller. Lq = Lk is the encoder on one device; a rank of an "sp" mesh holds
+Lk / sp query rows against the Lk keys of every rank. A CPU tensor takes
 ``attention_reference``.
 
 ``FlashAttention`` is the wrapper under autograd, for training: its forward
@@ -39,8 +41,8 @@ def attention_reference(q, k, v):
 
 
 def attention_backward(q, k, v, grad_out):
-    """The gradient of softmax(q kᵀ) v with respect to q, k and v, all
-    head-major [B, H, L, d]: the scores and softmax p recomputed in fp32,
+    """The gradient of softmax(q kᵀ) v with respect to q, k and v, head-major
+    q, grad_out [B, H, Lq, d] and k, v [B, H, Lk, d]: the scores and softmax p recomputed in fp32,
     then dv = pᵀ dO, dp = dO vᵀ, ds = p ∘ (dp - rowsum(p ∘ dp)), dq = ds k,
     dk = dsᵀ q, each cast to its input's dtype."""
     acc = _acc(q)
@@ -69,19 +71,21 @@ class FlashAttention(torch.autograd.Function):
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Non-causal attention, head-major [B, H, L, d]. CUDA: K2 (bf16,
-    d = 64); CPU: ``attention_reference``."""
+    """Non-causal attention, head-major q [B, H, Lq, d] against k, v
+    [B, H, Lk, d]. CUDA: K2 (bf16, d = 64); CPU: ``attention_reference``."""
     if q.device.type == "cpu":
         return attention_reference(q, k, v)
     kernels.check_cuda("flash_attention", q, k, v, dtypes=(torch.bfloat16,) * 3)
-    B, H, L, d = q.shape
-    if d != HEAD_DIM or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"flash_attention: need q, k, v of one shape [B, H, L, 64], got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    B, H, Lq, d = q.shape
+    Lk = k.shape[2]
+    if d != HEAD_DIM or k.shape != (B, H, Lk, d) or v.shape != k.shape:
+        raise ValueError(f"flash_attention: need q [B, H, Lq, 64] and k, v of one shape "
+                         f"[B, H, Lk, 64], got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
     out = torch.empty_like(q)
     kernels.call(
         "sstw_flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        B * H, L, kernels.stream_handle(q.device),
+        B * H, Lq, Lk, kernels.stream_handle(q.device),
     )
     kernels.LAUNCHES["flash_attention"] += 1
     return out

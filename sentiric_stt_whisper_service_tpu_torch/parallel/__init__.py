@@ -15,3 +15,4 @@ from .mesh import (  # noqa: F401
     shard_params,
     xa_kv_shardings,
 )
+from .replay import Held, Replay  # noqa: F401

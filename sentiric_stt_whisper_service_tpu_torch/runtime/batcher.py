@@ -49,7 +49,17 @@ before any device work, so an admission failure rejects (never orphans)
 it, and polls each live request's ``should_abort`` once per chunk. Greedy
 decoding only: the temperature-fallback ladder and beam search stay on the
 engine's own path. ``quantize_kv=True`` with no ``kv_bits`` means
-``kv_bits=8``, as in the JAX package; ``mesh`` is refused.
+``kv_bits=8``, as in the JAX package.
+
+**Over a mesh** (``mesh``, the mesh of a model sharded by
+``parallel/mesh.shard_params``) the pool holds the shard's heads and every
+rank holds every slot (dp replicates here, as in the JAX engine). One worker
+tick is one op of the engine's replay channel (``replay``,
+``parallel/replay.py``), carrying the tick's admissions (slot, window audio
+or cross-K/V handle, prompt, ``sot_index``, ``max_tokens``), the slots its
+abort polls freed, the live slots and the positions the host read: rank 0
+runs the worker and decides, the other ranks run no thread and replay the
+ticks. Under a tp group the step runs eagerly (``models/graphs.graphable``).
 """
 
 from __future__ import annotations
@@ -64,7 +74,15 @@ import numpy as np
 import torch
 
 from ..models.beam import read_bounds
-from ..models.graphs import DeviceLock, StepLoop, _capture, read_bound, to_device, to_host
+from ..models.graphs import (
+    DeviceLock,
+    StepLoop,
+    _capture,
+    graphable,
+    read_bound,
+    to_device,
+    to_host,
+)
 from ..models.sampling import NEG_INF, TokenIds, apply_timestamp_rules, prompt_bucket
 from ..models.whisper import (
     WhisperConfig,
@@ -74,9 +92,11 @@ from ..models.whisper import (
     init_kv_cache,
     int_view,
     precompute_xa_kv,
+    text_heads,
 )
 from ..ops import compute_log_mel
 from ..ops.quant import unpack_xa_kv
+from ..parallel.replay import Replay, channel_for
 
 
 @dataclasses.dataclass
@@ -133,11 +153,9 @@ class ContinuousBatcher:
         mesh=None,
         graph: bool = True,
         device_lock: Optional[DeviceLock] = None,
+        replay: Optional[Replay] = None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "ContinuousBatcher(mesh=...): the batcher over a device mesh is not ported "
-                "yet (ROADMAP queue 1 item 15b)")
+        replay = channel_for(params, mesh, replay, "ContinuousBatcher")
         if kv_bits is None:
             kv_bits = 8 if quantize_kv else 0
         if kv_bits not in _XA_NAMES:
@@ -156,7 +174,12 @@ class ContinuousBatcher:
             raise ValueError(f"xa_ctx {self.xa_ctx}: the int4 carrier packs position pairs, "
                              "so it must be even")
         self.bounds = read_bounds(cache_len)
+        self.n_head = text_heads(cfg, params)
         self._lock = device_lock or DeviceLock()
+        self._replay = replay
+        self._op = f"batcher/{self.xa_ctx}"
+        replay.register(self._op, self._tick_op)
+        replay.register(self._op + "/reset", self._reset_op)
         self._queue: "queue.Queue[_Request]" = queue.Queue()
         self._slot_req: list[Optional[_Request]] = [None] * max_slots
         self._host_pos = [0] * max_slots  # each slot's position at the last sync
@@ -164,22 +187,24 @@ class ContinuousBatcher:
             self.state = self._init_state()
             self._loop = StepLoop(self.state, {}, self._step_fn())
             self.graph_pool_bytes = 0
-            if graph and self.device.type == "cuda":
+            if graph and graphable(params) and self.device.type == "cuda":
                 with self._lock.exclusive():
                     self.graph_pool_bytes = _capture(self._loop, self.bounds,
                                                      torch.cuda.graph_pool_handle())
         self.pool_bytes = sum(t.numel() * t.element_size() for t in self._tensors())
         self._stop = threading.Event()
         self._wake = threading.Event()
-        self._thread = threading.Thread(target=self._worker, daemon=True,
-                                        name="continuous-batcher")
-        self._thread.start()
+        self._thread = None
+        if replay.leader:  # the other ranks of a mesh replay rank 0's ticks
+            self._thread = threading.Thread(target=self._worker, daemon=True,
+                                            name="continuous-batcher")
+            self._thread.start()
 
     # ------------------------------------------------------------------
     def _init_state(self) -> BatchState:
         cfg, S, dev = self.cfg, self.S, self.device
         hd = cfg.n_text_state // cfg.n_text_head
-        L, H, F = cfg.n_text_layer, cfg.n_text_head, self.xa_ctx
+        L, H, F = cfg.n_text_layer, self.n_head, self.xa_ctx
         names = _XA_NAMES[self.kv_bits]
         slab = (L, S, H, hd, F)
         xa = {n: torch.zeros(slab, dtype=torch.int8 if self.kv_bits else cfg.dtype, device=dev)
@@ -198,7 +223,8 @@ class ContinuousBatcher:
             sum_lp=torch.zeros((S,), **f32),
             tok_lps=torch.zeros((S, cfg.n_text_ctx), **f32),
             no_speech=torch.zeros((S,), **f32),
-            kv=init_kv_cache(cfg, S, self.cache_len, dtype=self.self_dtype, device=dev),
+            kv=init_kv_cache(cfg, S, self.cache_len, dtype=self.self_dtype, device=dev,
+                             n_head=H),
             xa_kv=xa,
             last_logits=torch.zeros((S, cfg.n_vocab), **f32),
         )
@@ -211,9 +237,12 @@ class ContinuousBatcher:
             out.extend(v.values() if isinstance(v, dict) else [v])
         return out
 
-    @torch.inference_mode()
     def _reset(self) -> None:
         """Every slot empty again, in place (the graphs keep the buffers)."""
+        self._replay.call(self._op + "/reset")
+
+    @torch.inference_mode()
+    def _reset_op(self, own=None) -> None:
         with self._lock.shared():
             for t in self._tensors():
                 t.zero_()
@@ -252,7 +281,8 @@ class ContinuousBatcher:
         """Stop the worker; reject what is still queued or in a slot."""
         self._stop.set()
         self._wake.set()
-        self._thread.join(timeout=10)
+        if self._thread is not None:
+            self._thread.join(timeout=10)
         pending = [r for r in self._slot_req if r is not None]
         while True:
             try:
@@ -345,9 +375,10 @@ class ContinuousBatcher:
                 enc = self._encode(audio)
                 parts.append(enc)
                 # Each raw request gets its slice back with its result: the
-                # engine reuses it for the alignment pass and fallback rungs.
+                # engine reuses it for the alignment pass and fallback rungs
+                # (kept under a handle of the replay channel on a mesh).
                 for j, (_, r) in enumerate(raws):
-                    r.xa_kv = {k: v[:, j : j + 1] for k, v in enc.items()}
+                    r.xa_kv = self._replay.keep({k: v[:, j : j + 1] for k, v in enc.items()})
             # A packed int4 carrier is unpacked into the int8 container.
             parts.extend(unpack_xa_kv(r.xa_kv) if self.kv_bits else r.xa_kv for _, r in encs)
             for p in parts:
@@ -380,7 +411,8 @@ class ContinuousBatcher:
             prompts_t, n_t, sots_t, slots_t, max_lens_t = (
                 to_device(a, dev) for a in (prompts, n_prompts, sots, slots, max_lens))
             rows = torch.arange(N, device=dev)
-            kv_n = init_kv_cache(self.cfg, N, bucket, dtype=st.kv["k"].dtype, device=dev)
+            kv_n = init_kv_cache(self.cfg, N, bucket, dtype=st.kv["k"].dtype, device=dev,
+                                 n_head=self.n_head)
             logits, kv_n = decoder_apply(self.cfg, self.params, prompts_t, 0, kv_n, xa_new)
             nsp = torch.softmax(logits[rows, sots_t], dim=-1)[:, self.ids.no_speech]
 
@@ -423,25 +455,37 @@ class ContinuousBatcher:
 
     @torch.inference_mode()
     def _worker_tick(self) -> None:
-        self._admit_queued()
-        self._poll_aborts()
+        admits = self._take_queued()
+        aborts = self._poll_aborts()
         live = [i for i, r in enumerate(self._slot_req) if r is not None]
-        if not live:
+        if not (admits or aborts or live):
             self._wake.wait(timeout=0.05)
             self._wake.clear()
             return
+        read = self._tick(admits, aborts, live)
+        if read is None:
+            return
+        done, pos = read
         with self._lock.shared():
-            done, pos = self._chunk(live)
             for slot in live:
+                if self._slot_req[slot] is None:  # its admission failed
+                    continue
                 self._host_pos[slot] = int(pos[slot])
                 if done[slot]:
                     self._harvest(slot, int(pos[slot]))
 
     @torch.inference_mode()
     def _admit_queued(self) -> None:
-        """Admit queued requests into the free slots. Futures are in
-        _slot_req before any device work: if the admission fails, its
-        requests are rejected here (or by the _worker backstop)."""
+        """Admit queued requests into the free slots (a tick without a
+        chunk)."""
+        admits = self._take_queued()
+        if admits:
+            self._tick(admits, [], [])
+
+    def _take_queued(self) -> list:
+        """Queued requests into the free slots, on the host: each future is
+        in _slot_req before any device work, so a failed admission rejects
+        it (here, in ``_tick``, or by the _worker backstop)."""
         admits = []
         for slot in self._free_slots():
             try:
@@ -449,28 +493,64 @@ class ContinuousBatcher:
             except queue.Empty:
                 break
             self._slot_req[slot] = req
+            self._host_pos[slot] = len(req.init_tokens)
             admits.append((slot, req))
-        if admits:
-            try:
-                with self._lock.shared():
-                    self._admit(admits)
-            except Exception as e:  # noqa: BLE001 — reject, don't orphan
-                with self._lock.shared():
-                    self.state.done[to_device(np.array([s for s, _ in admits]), self.device)] = True
-                for slot, req in admits:
-                    self._slot_req[slot] = None
-                    if not req.future.done():
-                        req.future.set_exception(e)
+        return admits
 
-    def _poll_aborts(self) -> None:
-        """Cooperative abort: a cancelled slot is freed and resolves None."""
+    def _poll_aborts(self) -> list:
+        """Cooperative abort: a cancelled slot is freed and resolves None.
+        Returns the freed slots (marked done on the device by the tick)."""
+        freed = []
         for slot, req in enumerate(self._slot_req):
             if req is not None and req.should_abort and req.should_abort():
                 self._slot_req[slot] = None
-                with self._lock.shared():
-                    self.state.done[slot] = True
+                freed.append(slot)
                 if not req.future.done():
                     req.future.set_result(None)
+        return freed
+
+    def _tick(self, admits: list, aborts: list, live: list):
+        """One tick on the device, as one op of the replay channel: the
+        admissions, the aborted slots marked done, then a chunk of steps of
+        the ``live`` slots. Rejects the admitted requests if their admission
+        failed; returns the chunk's (done, pos), or None without one."""
+        admissions = [(slot, r.audio, r.xa_kv, r.init_tokens, r.sot_index, r.max_tokens)
+                      for slot, r in admits]
+        error, read = self._replay.call(self._op, admissions, aborts, live,
+                                        list(self._host_pos), own=admits)
+        if error is not None:
+            for slot, req in admits:
+                self._slot_req[slot] = None
+                if not req.future.done():
+                    req.future.set_exception(error)
+        return read
+
+    @torch.inference_mode()
+    def _tick_op(self, admissions, aborts, live, host_pos, own=None):
+        """The tick's device work on every rank (rank 0's requests in
+        ``own``; a follower's stand-ins from ``admissions``). Returns
+        (the admission's exception or None, the chunk's (done, pos) or
+        None)."""
+        admits = own if own is not None else [
+            (slot, _Request(audio, xa, list(init), sot, max_tokens, Future()))
+            for slot, audio, xa, init, sot, max_tokens in admissions]
+        self._host_pos[:] = host_pos
+        error = read = None
+        dev = self.device
+        with self._lock.shared():
+            if admits:
+                try:
+                    self._admit(admits)
+                except Exception as e:  # noqa: BLE001 — rejected by the caller, not orphaned
+                    failed = [s for s, _ in admits]
+                    self.state.done[to_device(np.array(failed), dev)] = True
+                    live = [s for s in live if s not in failed]
+                    error = e
+            if aborts:
+                self.state.done[to_device(np.array(aborts), dev)] = True
+            if live:
+                read = self._chunk(live)
+        return error, read
 
     def _harvest(self, slot: int, end: int) -> None:
         req = self._slot_req[slot]

@@ -65,12 +65,36 @@ What differs from the JAX package:
     on every request at ``parallel_requests`` = 1 and above it whenever the
     batcher of its width is idle; ``PerformanceMetrics.spec`` counts the
     request's rounds, emitted tokens and accepted drafts.
-  * **Refused, not hidden**: ``mesh_shape`` other than "1" (ROADMAP queue 1
-    item 15b), ``beam_size`` above ``config.MAX_BEAM_SIZE`` and a draft of
-    another encoder width raise at construction; a request's ``beam_size``
-    above the limit raises. ``FLASH_ATTN=0`` has no effect here: the
-    encoder's attention runs K2 on the card (the engine says so in its log
-    when it is built).
+  * **A device mesh is one process per device.** The JAX engine is one
+    controller: ``MESH_SHAPE`` builds the mesh over every device, shards
+    the weights and GSPMD drives them all. Here each process drives one
+    device (``parallel/``): every process builds the engine, which makes
+    the mesh (``parallel.make_mesh``; the device is the mesh's, so two
+    ranks may share a card), quantizes, then shards the weights
+    (``parallel.shard_params``; decoder q/k/v stay unfused, as the JAX
+    engine keeps them under a mesh). Rank 0 serves: its request threads,
+    batcher and gang workers, gates, long-form loop, fallback ladder,
+    prosody and clustering run as on one device, and each device stage (an
+    encode, language detection, a decode, an alignment pass, a batcher
+    tick, a gang decode) is one op of the replay channel
+    (``parallel/replay.py``), which every other rank receives in order and
+    runs on its shard in :meth:`follow` until rank 0's :meth:`close`. Rank
+    0 alone decides (aborts, a window's stop, admissions) and sends its
+    decisions; its clock seed for sampled rungs goes to every rank. dp
+    replicates the engine's arrays, as in the JAX engine: every rank holds
+    every row. Under a tp group the decode steps run eagerly (gloo's
+    all-reduces run on the host, where a CUDA graph cannot capture them);
+    with dp or sp alone they stay graphed. Lock order on rank 0: the
+    channel's order lock first, then the engine's locks inside the op
+    (``_device_lock``, ``_eager``, ``DeviceLock.shared()``, a capture's
+    exclusive hold), so that a capture inside an op never waits on a
+    thread that waits for the channel.
+  * **Refused, not hidden**: ``beam_size`` above ``config.MAX_BEAM_SIZE``,
+    a draft of another encoder width, and a draft together with a mesh
+    (ROADMAP queue 1 item 15c) raise at construction; a request's
+    ``beam_size`` above the limit raises. ``FLASH_ATTN=0`` has no effect
+    here: the encoder's attention runs K2 on the card (the engine says so
+    in its log when it is built).
   * ``warmup()`` captures the decode graph classes of the configured ladder
     and of a streaming session's greedy partial ticks, and, at
     ``parallel_requests`` > 1, builds the batcher's pools (their step graphs)
@@ -119,9 +143,16 @@ from ..models import (
 from ..models.graphs import DeviceLock, to_device, to_host
 from ..models.speculative import SpecStats, decode_window_spec
 from ..models.sampling import PROMPT_BUCKETS, prompt_bucket
-from ..models.timestamps import align_bucket, alignment_scores, compute_token_times, token_boundaries
+from ..models.timestamps import (
+    align_bucket,
+    alignment_scores,
+    times_of_scores,
+    token_boundaries,
+    window_scores,
+)
 from ..ops import N_SAMPLES, SAMPLE_RATE, compute_log_mel
 from ..ops.quant import fuse_decoder_qkv, is_quantized, quantize_params
+from ..parallel import Replay, make_mesh, shard_params
 from ..prosody.extractor import AffectiveTags, ProsodyOptions, extract_prosody
 from ..text import clean_utf8, is_hallucination
 from ..tokenizer import LANGUAGES, WhisperTokenizer, fallback_tokenizer
@@ -256,7 +287,8 @@ def _cut_after_first_poll():
 
 
 class SttEngine:
-    """Whisper inference engine over one ``Whisper`` module on one device.
+    """Whisper inference engine over one ``Whisper`` module on one device,
+    or over a rank's shard of it on a mesh (``settings.mesh_shape``).
 
     Concurrency: admission is a bounded semaphore of ``parallel_requests``
     slots with a ``request_queue_timeout_ms`` wait; admitted requests share
@@ -279,15 +311,20 @@ class SttEngine:
         self.settings = settings
         name = model_name or settings.model_filename.replace("ggml-", "").replace(".bin", "")
         self.model_name = name
-        if settings.mesh_shape not in ("1", "", None):
-            raise NotImplementedError(
-                f"mesh_shape={settings.mesh_shape!r}: the engine over a device mesh (one "
-                "process per device, rank 0's device calls replayed by the others) is not "
-                "ported yet (ROADMAP queue 1 item 15b); parallel/ shards the model for "
-                "training and decode_window"
-            )
         check_beam_size(settings.beam_size)
         self.device = resolve_device(settings.device)
+        self.mesh = None
+        if settings.mesh_shape not in ("1", "", None):
+            if (settings.draft_model or "").strip() or draft_params is not None:
+                raise NotImplementedError(
+                    f"draft_model with mesh_shape={settings.mesh_shape!r}: speculative "
+                    "decoding over a mesh is not ported yet (ROADMAP queue 1 item 15c)")
+            mesh = make_mesh(settings.mesh_shape, device=self.device.type)
+            if mesh.device_mesh is not None:
+                self.mesh, self.device = mesh, mesh.device
+        # The ordered channel of device operations over the mesh's processes
+        # (in place, sending nothing, on one device).
+        self._replay = Replay(self.mesh)
         if params is None:
             if random_init:
                 g = torch.Generator(device=self.device)
@@ -316,7 +353,10 @@ class SttEngine:
         with torch.inference_mode():
             if self.quantized and not is_quantized(params):
                 quantize_params(params)
-            fuse_decoder_qkv(params)  # one q/k/v product on the decode path
+            if self.mesh is None:
+                fuse_decoder_qkv(params)  # one q/k/v product on the decode path
+        if self.mesh is not None:  # this rank's shard (q/k/v unfused)
+            params = shard_params(self.mesh, params)
         self.params = params
         self.draft_cfg: Optional[WhisperConfig] = None
         self.draft_params = None
@@ -348,7 +388,8 @@ class SttEngine:
                        else contextlib.nullcontext())
         self._ready = True
         self._generator = torch.Generator(device=self.device)
-        self._generator.manual_seed(int(time.time()) & 0x7FFFFFFF)
+        # Rank 0's clock seed on every rank: sampled rungs draw alike.
+        self._generator.manual_seed(self._replay.share(int(time.time()) & 0x7FFFFFFF))
         # The decode graph classes of this engine (models/graphs.py): one
         # StepLoop per shape class, captured at its first request.
         self.graphs = DecodeGraphs(lock=self._device)
@@ -361,6 +402,30 @@ class SttEngine:
         self._inflight = 0
         self._beam_inflight = 0
         self._count_lock = threading.Lock()
+        for name, op in (("encode", self._encode_op), ("detect", self._detect_op),
+                         ("decode", self._decode_window_op), ("align", self._align_op),
+                         ("align_batch", self._align_batch_op),
+                         ("new_batcher", self._new_batcher_op), ("new_gang", self._new_gang_op),
+                         ("release", self._release_op)):
+            self._replay.register(name, op)
+        self._replay.open()
+
+    @property
+    def is_leader(self) -> bool:
+        """True on rank 0 of a mesh (and on one device): the rank that serves."""
+        return self._replay.leader
+
+    def follow(self) -> None:
+        """A rank above 0 of a mesh: run rank 0's device operations on this
+        rank's shard, in order, until rank 0 calls :meth:`close`. Raises when
+        the channel fails (rank 0 gone, a timeout)."""
+        self._replay.follow()
+
+    def close(self) -> None:
+        """Rank 0 of a mesh: release the followers (they leave
+        :meth:`follow`); after it the engine serves no request. No-op on
+        one device."""
+        self._replay.close()
 
     def _load_draft(self, dm: str, draft_params, random_init: bool) -> None:
         """The speculative draft (``draft_params``, a ``Whisper``, when the
@@ -424,12 +489,15 @@ class SttEngine:
         xa_ctx = xa_ctx or self.cfg.n_audio_ctx
         with self._batcher_lock:
             if xa_ctx not in self._batchers:
-                self._batchers[xa_ctx] = ContinuousBatcher(
-                    self.cfg, self.params, self.ids, self.suppress_mask,
-                    max_slots=max(2, self.settings.max_batch_size), cache_len=256,
-                    kv_bits=self.xa_bits, xa_ctx=xa_ctx, self_dtype=self.self_dtype,
-                    device_lock=self._device)
+                self._replay.call("new_batcher", xa_ctx)
             return self._batchers[xa_ctx]
+
+    def _new_batcher_op(self, xa_ctx: int, own=None) -> None:
+        self._batchers[xa_ctx] = ContinuousBatcher(
+            self.cfg, self.params, self.ids, self.suppress_mask,
+            max_slots=max(2, self.settings.max_batch_size), cache_len=256,
+            kv_bits=self.xa_bits, xa_ctx=xa_ctx, self_dtype=self.self_dtype,
+            mesh=self.mesh, device_lock=self._device, replay=self._replay)
 
     def _get_beam_gang(self) -> Optional[BeamGang]:
         """The beam gang, when the engine serves concurrent requests and
@@ -438,12 +506,16 @@ class SttEngine:
             return None
         with self._batcher_lock:
             if self._beam_gang is None:
-                self._beam_gang = BeamGang(
-                    self.cfg, self.params, self.ids, self.suppress_mask,
-                    window_ms=self.settings.gang_window_ms,
-                    max_gang=max(2, self.settings.max_batch_size), self_dtype=self.self_dtype,
-                    others_hint=lambda: self._beam_inflight, device_lock=self._device)
+                self._replay.call("new_gang")
             return self._beam_gang
+
+    def _new_gang_op(self, own=None) -> None:
+        self._beam_gang = BeamGang(
+            self.cfg, self.params, self.ids, self.suppress_mask,
+            window_ms=self.settings.gang_window_ms,
+            max_gang=max(2, self.settings.max_batch_size), self_dtype=self.self_dtype,
+            others_hint=lambda: self._beam_inflight, mesh=self.mesh,
+            device_lock=self._device, replay=self._replay)
 
     def warmup(self) -> float:
         """Capture the decode graph classes a request's first window meets
@@ -469,10 +541,7 @@ class SttEngine:
         clip[:SAMPLE_RATE] = 0.1 * np.sin(2 * np.pi * 150 * t)
         xa = self._encode_window(clip[None])
         if self.cfg.is_multilingual:
-            sp = self.tokenizer.special
-            with self._eager, self._device.shared():
-                detect_language(self.cfg, self.params, xa, sp.sot, sp.language_begin,
-                                sp.num_languages)
+            self._replay.call("detect", xa)
         rungs = [(s.temperature, s.beam_size, s.best_of)]
         if s.temperature + 0.2 <= 1.0 + 1e-6:
             rungs.append((max(s.temperature, 0.0) + 0.2, s.beam_size, s.best_of))
@@ -520,9 +589,7 @@ class SttEngine:
         if not spec:  # with a draft a tick's window decodes speculatively
             self._warmup_tick_classes(clip, sot)
         if not s.no_timestamps:
-            seq = np.asarray(sot + [100 + i for i in range(8)], np.int64)
-            with self._eager, self._device.shared():
-                compute_token_times(self.cfg, self.params, xa, seq, len(sot), 50)
+            self._token_times(xa, sot + [100 + i for i in range(8)], len(sot), 50)
         extract_prosody(clip[:SAMPLE_RATE], SAMPLE_RATE)  # its first call imports scipy
         if self.device.type == "cuda":
             with self._device.shared():
@@ -579,15 +646,22 @@ class SttEngine:
 
     def shutdown(self):
         """Stop the batcher's and the gang's workers (rejecting what they
-        still hold) and release the decode graph classes; a later request
-        builds and captures anew."""
+        still hold) and release the decode graph classes, on every rank of
+        a mesh; a later request builds and captures anew."""
         with self._batcher_lock:
             for b in self._batchers.values():
                 b.shutdown()
-            self._batchers.clear()
             if self._beam_gang is not None:
                 self._beam_gang.shutdown()
-                self._beam_gang = None
+            self._replay.call("release")
+
+    def _release_op(self, own=None) -> None:
+        for b in self._batchers.values():
+            b.shutdown()  # a follower's: no worker, nothing held
+        self._batchers.clear()
+        if self._beam_gang is not None:
+            self._beam_gang.shutdown()
+            self._beam_gang = None
         with self._device_lock:
             self.graphs = DecodeGraphs(lock=self._device)
 
@@ -631,16 +705,20 @@ class SttEngine:
             elif target > windows.shape[-1]:
                 pad = [(0, 0)] * (windows.ndim - 1) + [(0, target - windows.shape[-1])]
                 windows = np.pad(windows, pad)
-        cfg = self.cfg
-        with self._stage("encode"), self._eager, self._device.shared(), torch.inference_mode():
-            audio = to_device(np.ascontiguousarray(windows), self.device)
+        with self._stage("encode"):
+            return self._replay.call("encode", np.ascontiguousarray(windows), with_draft)
+
+    def _encode_op(self, windows: np.ndarray, with_draft: bool, own=None):
+        cfg, keep = self.cfg, self._replay.keep
+        with self._eager, self._device.shared(), torch.inference_mode():
+            audio = to_device(windows, self.device)
             mel = compute_log_mel(audio, n_mels=cfg.n_mels, dtype=cfg.dtype)
             xa = encoder_apply(cfg, self.params, mel)
-            xa_kv = precompute_xa_kv(cfg, self.params, xa, self.xa_bits)
+            xa_kv = keep(precompute_xa_kv(cfg, self.params, xa, self.xa_bits))
             if not with_draft:
                 return xa_kv
-            return xa_kv, precompute_xa_kv(self.draft_cfg, self.draft_params,
-                                           xa.to(self.draft_cfg.dtype), self.xa_bits)
+            return xa_kv, keep(precompute_xa_kv(self.draft_cfg, self.draft_params,
+                                                xa.to(self.draft_cfg.dtype), self.xa_bits))
 
     def _encode_window_with_draft(self, windows: np.ndarray, n_ctx: Optional[int] = None):
         """(the target's cross K/V, the draft's) from one encode of the
@@ -722,6 +800,7 @@ class SttEngine:
                     self._beam_inflight -= beam_flight
         finally:
             self._slots.release()
+            self._replay.flush()  # the request's cross K/V, freed on the followers
         metrics.processing_time_ms = (time.perf_counter() - t_start) * 1e3
         metrics.token_count = sum(r.token_count for r in results)
         return results
@@ -753,13 +832,18 @@ class SttEngine:
         window[:n] = audio[:n]
         n_ctx = self._window_ctx(n, options.audio_ctx)
         xa_kv = self._encode_window(window[None], n_ctx)
-        sp = self.tokenizer.special
-        with self._stage("detect"), self._eager, self._device.shared():
-            probs = detect_language(self.cfg, self.params, xa_kv, sp.sot, sp.language_begin,
-                                    sp.num_languages)[0]
-            probs = to_host(probs).numpy()
+        with self._stage("detect"):
+            probs = self._replay.call("detect", xa_kv)
         best = int(np.argmax(probs))
         return LANGUAGES[best], float(probs[best]), xa_kv, n_ctx
+
+    def _detect_op(self, xa_kv: dict, own=None) -> np.ndarray:
+        """Language probabilities of the first window of ``xa_kv``."""
+        sp = self.tokenizer.special
+        with self._eager, self._device.shared():
+            probs = detect_language(self.cfg, self.params, xa_kv, sp.sot, sp.language_begin,
+                                    sp.num_languages)[0]
+            return to_host(probs).numpy()
 
     def _decode_one(
         self,
@@ -837,9 +921,25 @@ class SttEngine:
                     return None
                 with self._device.shared():
                     return _host(res)
+        with self._stage("decode"):
+            return self._replay.call(
+                "decode", xa_kv, tinit, sample_begin, sot_index, temperature, beam_size,
+                best_of, max_len, prefill_len, sample_len if greedy else None,
+                should_abort is not None, own=should_abort)
+
+    def _decode_window_op(self, xa_kv, tinit, sample_begin, sot_index, temperature,
+                          beam_size, best_of, max_len, prefill_len, sample_cap, abortable,
+                          own=None) -> Optional[DecodeResult]:
+        """One decode on the engine's own graph classes, the rows of
+        ``tinit`` over ``xa_kv``: beam search at t = 0 with beam_size > 1,
+        best-of sampling above t = 0 with best_of > 1, else greedy (or
+        sampled) decoding. Rank 0's abort poll (``own``) decides for every
+        rank. The result on the host, or None if aborted."""
+        cfg = self.cfg
+        should_abort = self._replay.decider(own) if abortable else None
         common = dict(max_len=max_len, prefill_len=prefill_len, self_dtype=self.self_dtype,
                       should_abort=should_abort, graphs=self.graphs)
-        with self._stage("decode"), self._device_lock, self._device.shared():
+        with self._device_lock, self._device.shared():
             args = (cfg, self.params, xa_kv, to_device(tinit, self.device),
                     sample_begin, sot_index, self.ids, self.suppress_mask)
             if temperature <= 0.0 and beam_size > 1:
@@ -850,9 +950,8 @@ class SttEngine:
                                             cvalid_rows=self.settings.cvalid_rows, **common)
             else:
                 res = decode_window(
-                    *args, temperature, self._generator if temperature > 0.0 else None,
-                    cvalid_rows=self.settings.cvalid_rows,
-                    sample_cap=sample_len if greedy else None, **common)
+                    *args, max(temperature, 0.0), self._generator if temperature > 0.0 else None,
+                    cvalid_rows=self.settings.cvalid_rows, sample_cap=sample_cap, **common)
             return None if res is None else _host(res)
 
     def _decode_spec(self, xa_kv, xa_kv_draft, init_tokens, sample_begin, sot_index,
@@ -1059,12 +1158,9 @@ class SttEngine:
             if segments and not no_ts:
                 try:
                     align_seq = [t for t in map(int, seq) if t != ids.eot]
-                    with self._stage("align"), self._eager, self._device.shared():
-                        token_times = compute_token_times(
-                            cfg, self.params, xa_kv,
-                            np.asarray(init_tokens + align_seq, np.int64),
-                            sample_begin, max(1, remain // 320),
-                        )
+                    with self._stage("align"):
+                        token_times = self._token_times(xa_kv, init_tokens + align_seq,
+                                                        sample_begin, max(1, remain // 320))
                 except Exception:  # noqa: BLE001 — timestamps are best-effort, as there
                     log.exception("token timestamps failed; segment bounds used")
                     token_times = None
@@ -1142,11 +1238,6 @@ class SttEngine:
             xa_kv = self._encode_window(windows)
             tinit = np.full((W, cfg.n_text_ctx), ids.eot, np.int64)
             tinit[:, :sample_begin] = init_tokens
-            with self._device.shared():
-                tinit = to_device(tinit, self.device)
-            args = (cfg, self.params, xa_kv, tinit, sample_begin, 0, ids, self.suppress_mask)
-            common = dict(max_len=max_len, prefill_len=prefill_len, self_dtype=self.self_dtype,
-                          should_abort=options.should_abort, graphs=self.graphs)
 
             accepted: dict[int, tuple] = {}  # j -> (seq, tok_lps)
             silent: set[int] = set()
@@ -1156,16 +1247,13 @@ class SttEngine:
             for t in temps:
                 if len(accepted) + len(silent) == W:
                     break
-                with self._stage("decode"), self._device_lock, self._device.shared():
-                    if t <= 0.0 and beam_size > 1:
-                        res = decode_window_beam(*args, beam_size=beam_size, **common)
-                    else:
-                        res = decode_window(
-                            *args, max(t, 0.0), self._generator if t > 0.0 else None,
-                            cvalid_rows=s.cvalid_rows, **common)
-                    if res is None:  # aborted mid-decode → stop the request
-                        return results
-                    res = _host(res)
+                with self._stage("decode"):
+                    res = self._replay.call(
+                        "decode", xa_kv, tinit, sample_begin, 0, t, beam_size, 1, max_len,
+                        prefill_len, None, options.should_abort is not None,
+                        own=options.should_abort)
+                if res is None:  # aborted mid-decode → stop the request
+                    return results
                 toks_np, lens_np, lps_np = res.tokens, res.lengths, res.token_logprobs
                 for j in range(W):
                     if j in accepted or j in silent:
@@ -1197,7 +1285,7 @@ class SttEngine:
             token_times: dict[int, np.ndarray] = {}
             if accepted and not no_ts:
                 try:
-                    with self._stage("align"), self._eager, self._device.shared():
+                    with self._stage("align"):
                         token_times = self._align_batch(
                             xa_kv, accepted, init_tokens, sample_begin, durs_cs)
                 except Exception:  # noqa: BLE001 — timestamps are best-effort, as there
@@ -1235,10 +1323,7 @@ class SttEngine:
         for r, j in enumerate(keys):
             align[r, :sample_begin] = init_tokens
             align[r, sample_begin : sample_begin + len(seqs[j])] = seqs[j]
-        rows = to_device(np.asarray(keys, np.int64), self.device)
-        sel = {k: v.index_select(1, rows) for k, v in xa_kv.items()}
-        scores = to_host(alignment_scores(cfg, self.params, sel,
-                                          to_device(align, self.device))).numpy()
+        scores = self._replay.call("align_batch", xa_kv, np.asarray(keys, np.int64), align)
         out = {}
         for r, j in enumerate(keys):
             n_frames = max(1, int(durs_cs[j] / 2))
@@ -1246,6 +1331,26 @@ class SttEngine:
             if sc.shape[0]:
                 out[j] = token_boundaries(sc, n_frames)
         return out
+
+    def _align_batch_op(self, xa_kv, rows: np.ndarray, align: np.ndarray,
+                        own=None) -> np.ndarray:
+        """The alignment scores [R, T, F] of the token rows ``align`` over the
+        windows ``rows`` of ``xa_kv``, on the host."""
+        with self._eager, self._device.shared():
+            rows_t = to_device(rows, self.device)
+            sel = {k: v.index_select(1, rows_t) for k, v in xa_kv.items()}
+            return to_host(alignment_scores(self.cfg, self.params, sel,
+                                            to_device(align, self.device))).numpy()
+
+    def _token_times(self, xa_kv, tokens: list, sample_begin: int, n_frames: int) -> np.ndarray:
+        """One window's token times: the alignment pass on the device (an op),
+        then DTW on the host."""
+        scores = self._replay.call("align", xa_kv, np.asarray(tokens, np.int64))
+        return times_of_scores(scores, sample_begin, n_frames)
+
+    def _align_op(self, xa_kv, tokens: np.ndarray, own=None) -> np.ndarray:
+        with self._eager, self._device.shared():
+            return window_scores(self.cfg, self.params, xa_kv, tokens)
 
     def _build_segment_results(
         self,

@@ -14,7 +14,14 @@ resolved, also when the batched decode raises.
 On the card the decode replays through a ``DecodeGraphs`` that the gang
 owns (its own memory pool, one class per B bucket), captured under the
 device lock held exclusively; the worker holds the lock shared while it
-decodes. ``mesh`` is refused.
+decodes.
+
+Over a mesh (``mesh``, the mesh of a model sharded by
+``parallel/mesh.shard_params``) one gang decode is one op of the engine's
+replay channel (``replay``, ``parallel/replay.py``), carrying the members'
+cross-K/V handles and prompt rows, the bucket and the ``GangKey``; rank 0
+forms the gangs and decides the aborts, the other ranks run no worker and
+replay the decodes. Under a tp group the decode runs eagerly.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ import torch
 from ..models.beam import decode_window_beam
 from ..models.graphs import DecodeGraphs, DeviceLock, to_device
 from ..models.sampling import DecodeResult
+from ..parallel.replay import Replay, channel_for
 
 
 @dataclass(frozen=True)
@@ -79,11 +87,9 @@ class BeamGang:
         others_hint=None,
         mesh=None,
         device_lock: Optional[DeviceLock] = None,
+        replay: Optional[Replay] = None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "BeamGang(mesh=...): the gang over a device mesh is not ported yet "
-                "(ROADMAP queue 1 item 15b)")
+        replay = channel_for(params, mesh, replay, "BeamGang")
         self.cfg, self.params, self.ids = cfg, params, ids
         self.suppress_mask = suppress_mask
         self.device = suppress_mask.device
@@ -99,8 +105,12 @@ class BeamGang:
         self._q: "queue.Queue[Optional[_Item]]" = queue.Queue()
         self._pending: list[_Item] = []  # items deferred by a key mismatch
         self._stop = threading.Event()
-        self._worker = threading.Thread(target=self._run, name="beam-gang", daemon=True)
-        self._worker.start()
+        self._replay = replay
+        replay.register("gang", self._decode_op)
+        self._worker = None
+        if replay.leader:  # the other ranks of a mesh replay rank 0's decodes
+            self._worker = threading.Thread(target=self._run, name="beam-gang", daemon=True)
+            self._worker.start()
 
     # ------------------------------------------------------------------
     def submit(self, xa_kv: dict, tokens_row: np.ndarray, key: GangKey,
@@ -113,7 +123,8 @@ class BeamGang:
     def shutdown(self) -> None:
         self._stop.set()
         self._q.put(None)
-        self._worker.join(timeout=5.0)
+        if self._worker is not None:
+            self._worker.join(timeout=5.0)
         # Callers blocked in fut.result() must never hang on shutdown.
         self._drain_unresolved(RuntimeError("beam gang shut down"))
 
@@ -224,10 +235,6 @@ class BeamGang:
         return b
 
     def _decode(self, gang: list[_Item]) -> Optional[DecodeResult]:
-        key = gang[0].key
-        # Pad to the bucket with copies of member 0: the windows' beams are
-        # independent, and _resolve reads the first len(gang) rows only.
-        items = list(gang) + [gang[0]] * (self.batch_bucket(len(gang)) - len(gang))
         gang_abort = None
         if any(it.should_abort is not None for it in gang):
             # Aborted members resolve None between chunks; the decode stops
@@ -243,17 +250,27 @@ class BeamGang:
                         all_gone = False
                 return all_gone
 
+        return self._replay.call(
+            "gang", gang[0].key, [(it.xa_kv, it.tokens_row) for it in gang],
+            self.batch_bucket(len(gang)), gang_abort is not None, own=gang_abort)
+
+    def _decode_op(self, key: GangKey, members: list, bucket: int, abortable: bool,
+                   own=None) -> Optional[DecodeResult]:
+        """One gang's decode on every rank: ``members`` (cross K/V, prompt
+        row) padded to ``bucket`` with copies of member 0 (the windows'
+        beams are independent, and _resolve reads the first len(gang) rows
+        only); rank 0's abort poll (``own``) decides for every rank."""
+        items = list(members) + [members[0]] * (bucket - len(members))
+        abort = self._replay.decider(own) if abortable else None
         with self._decoding, self._lock.shared(), torch.inference_mode():
             if len(items) == 1:
-                xa_kv = gang[0].xa_kv
+                xa_kv = members[0][0]
             else:
-                xa_kv = {n: torch.cat([it.xa_kv[n] for it in items], dim=1)
-                         for n in gang[0].xa_kv}
-            tinit = to_device(np.stack([it.tokens_row for it in items]).astype(np.int64),
-                              self.device)
+                xa_kv = {n: torch.cat([xa[n] for xa, _ in items], dim=1) for n in members[0][0]}
+            tinit = to_device(np.stack([row for _, row in items]).astype(np.int64), self.device)
             return decode_window_beam(
                 self.cfg, self.params, xa_kv, tinit, key.sample_begin,
                 key.sot_index, self.ids, self.suppress_mask, beam_size=key.beam_size,
                 max_len=key.max_len, use_timestamps=key.use_timestamps,
                 prefill_len=key.prefill_len, self_dtype=self.self_dtype,
-                should_abort=gang_abort, graphs=self.graphs)
+                should_abort=abort, graphs=self.graphs)

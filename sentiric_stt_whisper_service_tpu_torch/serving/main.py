@@ -11,9 +11,10 @@ The multi-process leg (the JAX package's ``jax.distributed`` one):
 ``parallel.maybe_initialize_distributed`` joins the processes before any
 device touch when ``STT_WHISPER_SERVICE_COORDINATOR_ADDRESS`` is set
 (``DISTRIBUTED_READY``; a failure logs ``DISTRIBUTED_INIT_FAILED`` and
-raises). The engine still refuses a ``mesh_shape`` other than "1": its
-route over a mesh, every rank replaying rank 0's device calls, is ROADMAP
-queue 1 item 15b.
+raises). Every process builds the engine over ``MESH_SHAPE``; rank 0 then
+serves, and a rank above 0 starts no server: it follows rank 0, running
+rank 0's device operations on its shard (``SttEngine.follow``,
+``parallel/replay.py``) until rank 0's shutdown releases it.
 
     python -m sentiric_stt_whisper_service_tpu_torch.serving [--random-init]
 """
@@ -111,12 +112,13 @@ def _load_vad(settings: Settings) -> None:
 def shutdown(engine: SttEngine, grpc_server, apps, grace: float = 5.0) -> None:
     """Ordered shutdown: the gRPC server (in-flight calls get ``grace``
     seconds) and its worker pool, the HTTP and metrics servers, then the
-    engine's workers."""
+    engine's workers, then (on a mesh) the ranks that follow rank 0."""
     grpc_server.stop(grace=grace).wait(grace + 5)
     grpc_server.worker_pool.shutdown(wait=True)
     for app in apps:
         app.stop()
     engine.shutdown()
+    engine.close()
 
 
 def serve(settings: Settings | None = None, random_init: bool = False, block=True):
@@ -149,11 +151,19 @@ def serve(settings: Settings | None = None, random_init: bool = False, block=Tru
         except Exception as e:  # pragma: no cover - depends on network
             suts_error("MODEL_PROVISION_FAILED", "", "", "", "%s", e)
             raise
-        if settings.enable_vad:
-            _load_vad(settings)
+    leader = not dist.is_initialized() or dist.get_rank() == 0
+    if not random_init and settings.enable_vad and leader:  # the gate runs on rank 0
+        _load_vad(settings)
 
     metrics = AppMetrics()
     engine = SttEngine(settings, random_init=random_init)
+    if not engine.is_leader:
+        suts_info("REPLAY_FOLLOWING", "", "", "", "process %d follows rank 0",
+                  dist.get_rank())
+        engine.follow()
+        suts_info("REPLAY_RELEASED", "", "", "", "rank 0 shut down; process %d stops",
+                  dist.get_rank())
+        return None
     if os.environ.get("STT_WHISPER_SERVICE_WARMUP", "true").lower() in ("true", "1"):
         suts_info("WARMUP_START", "", "", "", "Capturing the decode graph classes")
         dt = engine.warmup()

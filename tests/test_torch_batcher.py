@@ -372,9 +372,11 @@ def test_failing_admission_rejects_futures(stack):
 
 
 def test_refused_arguments(stack):
-    for kw, exc in ((dict(mesh=object()), NotImplementedError),
-                    (dict(kv_bits=4, xa_ctx=101), ValueError)):
-        with pytest.raises(exc):
+    """A mesh that is not the one the model is sharded on (the batcher over
+    a mesh: tests/test_torch_engine_mesh.py), and an odd int4 width."""
+    for kw, match in ((dict(mesh=object()), "the mesh must be the one"),
+                      (dict(kv_bits=4, xa_ctx=101), "must be even")):
+        with pytest.raises(ValueError, match=match):
             stack.pool(**kw)
 
 

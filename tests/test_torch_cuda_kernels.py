@@ -74,6 +74,22 @@ def test_flash_attention(dev, B, H, L):
     _close_bf16(got, attention_reference(q, k, v))
 
 
+# a rank's rows of an sp mesh (Lq = Lk / sp) against every key, ragged pairs,
+# and more query rows than keys
+@pytest.mark.parametrize("B,H,Lq,Lk", [(1, 20, 750, 1500), (1, 20, 384, 768), (2, 7, 37, 101),
+                                       (1, 3, 200, 64)])
+def test_flash_attention_query_and_key_lengths(dev, B, H, Lq, Lk):
+    q = (torch.randn(B, H, Lq, 64, device=dev) * 0.3).bfloat16()
+    k, v = ((torch.randn(B, H, Lk, 64, device=dev) * s).bfloat16() for s in (0.3, 1.0))
+    before = kernels.LAUNCHES["flash_attention"]
+    got = flash_attention(q, k, v)
+    assert kernels.LAUNCHES["flash_attention"] == before + 1
+    assert got.shape == q.shape
+    _close_bf16(got, attention_reference(q, k, v))
+    with pytest.raises(ValueError, match="one shape"):
+        flash_attention(q, k, v[:, :, :-1].contiguous())
+
+
 @pytest.mark.parametrize("form", ["bf16", "causal", "int8", "int4"])
 def test_decode_attention(dev, form):
     S, H, HD, F = 3, 20, 64, 1500

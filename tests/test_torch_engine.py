@@ -15,9 +15,11 @@ resample, min-duration, VAD and abort gates, ``EngineBusyException``, and
 the int8 and int4 compute types against the reference's own quantized
 engine. The fallback ladder is held with both engines' ``_decode_one``
 scripted to the same results: the rungs tried, the result chosen and the
-prompt reset above t = 0.5. The port refuses what it has not ported
-(no card for ``device="auto"``, a mesh, beam sizes above 32) at
-construction, and a ``draft_model`` of another encoder width."""
+prompt reset above t = 0.5. The port refuses at construction what it
+cannot serve: no card for ``device="auto"``, a mesh of more devices than
+processes (the engine over a mesh: ``tests/test_torch_engine_mesh.py``), a
+draft together with a mesh (not ported), beam sizes above 32 and a
+``draft_model`` of another encoder width."""
 
 import dataclasses
 
@@ -275,9 +277,12 @@ def test_refused_settings(params):
             engine.SttEngine(Settings(), model_name="test", params=model)
         with pytest.raises(RuntimeError, match="no CUDA device"):
             engine.SttEngine(Settings(device="cuda"), model_name="test", params=model)
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(ValueError, match="needs 8 devices, have 1"):
         engine.SttEngine(Settings(device="cpu", mesh_shape="2x4"), model_name="test",
                          params=model)
+    with pytest.raises(NotImplementedError, match="item 15c"):
+        engine.SttEngine(Settings(device="cpu", mesh_shape="2x4", draft_model="test"),
+                         model_name="test", params=model)
     # A draft loads (its own seed under random_init), quantized and fused as
     # the target; one of another encoder width is refused.
     eng = engine.SttEngine(Settings(device="cpu", draft_model="test", compute_type="int8"),

@@ -62,6 +62,7 @@ MODULES = [
     "sentiric_stt_whisper_service_tpu_torch.parallel",
     "sentiric_stt_whisper_service_tpu_torch.parallel.mesh",
     "sentiric_stt_whisper_service_tpu_torch.parallel.distributed",
+    "sentiric_stt_whisper_service_tpu_torch.parallel.replay",
     "sentiric_stt_whisper_service_tpu_torch.runtime.training",
 ]
 

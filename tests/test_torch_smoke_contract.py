@@ -3,10 +3,11 @@ row of the ``kernels`` JSON line each) has every launch counter of
 ``kernels.LAUNCHES``, each with a source in ``csrc/`` and the line of the
 ``pl.pallas_call`` it replaces, and its ``--profile`` name list covers every
 ``__global__`` function of ``csrc/``, so the breakdown drops none. Its
-docstring numbers phases 1 to 12, phase 8's wire chunks carry the WAV header
+docstring numbers phases 1 to 13, phase 8's wire chunks carry the WAV header
 and odd byte counts, the probe's and the serving phase's constants hold
-what they promise, and phase 12's gradient and decode checks fail what they
-must.
+what they promise, phase 12's gradient and decode checks and phase 13's
+decode checks fail what they must, and phase 13 declares its paths
+``engine_tp`` and ``engine_sp`` and requires their checks.
 chip_smoke.py's top level is stdlib only, so it imports here without a card."""
 
 import importlib.util
@@ -43,14 +44,15 @@ def test_profile_names_cover_every_kernel_function():
 
 
 def test_docstring_numbers_every_phase():
-    """The module docstring describes phases 1 to 12, in order (9: serving,
+    """The module docstring describes phases 1 to 13, in order (9: serving,
     10: the int8 attention probe, 11: speculative decoding, 12: training and
-    the mesh)."""
+    the mesh, 13: the engine over a mesh)."""
     doc = _smoke().__doc__
     numbers = [int(n) for n in re.findall(r"^(\d+)\. ", doc, flags=re.M)]
-    assert numbers == list(range(1, 13))
+    assert numbers == list(range(1, 14))
     assert "probe_flash_int8" in doc and "serving" in doc and "spec_turbo" in doc
     assert "training_tp" in doc and "--tp-worker" in doc
+    assert "engine_tp" in doc and "engine_sp" in doc and "--mesh-worker" in doc
 
 
 def test_phase_twelve_runs_last_and_the_last_line_stays():
@@ -205,3 +207,67 @@ def test_bound_counts_the_exponentials():
     b, n = 4, 4 * H * L * D * 2 * 4
     ms, by = smoke.bound(n, {"bf16": 4 * b * H * L * L * D}, b * H * L * L)
     assert by == "operations" and ms == pytest.approx(0.0466, abs=1e-4)
+
+
+def test_phase_thirteen_runs_after_twelve_and_requires_its_checks():
+    """Phase 13 (the engine over a mesh) runs after phase 12 and before the
+    kernels line; a rank starts before the CUDA check only as
+    ``--mesh-worker``; its paths ``engine_tp`` and ``engine_sp`` are set from
+    rank 0's counts and their kernels ``need_launched``; the decode, segment,
+    kernel and K2-shape checks are ``require``d, not printed; K2's JSON row
+    carries its sp form with the launches of ``engine_sp``."""
+    smoke = _smoke()
+    text = (ROOT / "chip_smoke.py").read_text()
+    run_body = text[text.index("def run(torch, np"):text.index("def voiced_like(")]
+    order = [run_body.index(k) for k in (
+        "training_phase(torch, np, paths, card)", "mesh_phase(torch, np, model, paths, card)",
+        "print(json.dumps({\"kernels\": kernels_json}))")]
+    assert order == sorted(order)
+    assert '"sp_form"' in run_body and 'paths["engine_sp"][name]' in run_body
+    main = text[text.index("def main()"):text.index("def compare(")]
+    assert main.index('"--mesh-worker"') < main.index("torch.cuda.is_available()")
+    assert dict(smoke.MESH_SHAPES) == {"engine_tp": "1x2", "engine_sp": "1x1x2"}
+    phase = text[text.index("def mesh_phase("):text.index("def mesh_worker(")]
+    for needle in ("paths[path] = got[\"launches\"]", "need_launched(paths, path, names)",
+                   "require(err <= tol", "equal decodes, other segments", "alignment scores off by",
+                   "K2's last call was not a rank's half"):
+        assert needle in phase, needle
+    check = text[text.index("def mesh_decode_check("):text.index("def mesh_phase(")]
+    assert check.count("require(") >= 3
+
+
+def test_mesh_decode_check_holds_a_divergence_to_its_drift():
+    """Phase 13's rule: a decode equal to the yardstick's passes; a greedy
+    decode that differs passes where the unsharded top-two margin at its
+    first differing token is within twice the teacher-forced drift and fails
+    above it; a beam 5 choice that differs passes where the two average
+    log-probabilities lie within four times the drift and fails beyond."""
+    import numpy as np
+    import pytest
+    import torch
+
+    smoke = _smoke()
+    sb = 3
+    row = np.arange(20)
+    forced = torch.zeros((19, 8))
+    drifted = forced.clone()
+    drifted[5, 2] = 0.02  # drift 0.02
+    margins = {j: (0.01 if j == 4 else 0.5) for j in range(17)}
+    yard = (sb, row, -1.0)
+    smoke.mesh_decode_check(torch, "1x2", "lone", yard, [(sb, row.copy(), -1.0)], forced,
+                            drifted, margins.get)
+    flip = row.copy()
+    flip[sb + 4:] = -1  # from token 4, where the margin is 0.01 <= 0.04
+    equal, total, drift = smoke.mesh_decode_check(torch, "1x2", "pair", yard,
+                                                  [(sb, row.copy(), -1.0), (sb, flip, -1.0)],
+                                                  forced, drifted, margins.get)
+    assert (equal, total) == (1, 2) and drift == pytest.approx(0.02)
+    flip[sb + 3] = -1  # from token 3, where the margin is 0.5
+    with pytest.raises(smoke.SmokeFailure):
+        smoke.mesh_decode_check(torch, "1x2", "lone", yard, [(sb, flip, -1.0)], forced,
+                                drifted, margins.get)
+    smoke.mesh_decode_check(torch, "1x2", "beam", yard, [(sb, flip, -1.05)], forced, drifted,
+                            margins.get)
+    with pytest.raises(smoke.SmokeFailure):
+        smoke.mesh_decode_check(torch, "1x2", "beam", yard, [(sb, flip, -1.2)], forced, drifted,
+                                margins.get)
