@@ -93,10 +93,7 @@ JAX package) and fails with a non-zero exit on the first phase that fails:
    t1 < t0 can occur with random weights, in the JAX package too; such
    segments are counted, not refused.) Phase 6's engines run at
    ``parallel_requests=1``: one request at a time on the engine's own graph
-   classes. The 12 s clip on the beam engine, five times before and five
-   after ``serving.http_server.init_device_profiler`` (the process's first
-   trace with CUDA activities): what ``serve()``'s profiler set-up costs a
-   request;
+   classes;
 7. concurrency: the engine at ``parallel_requests=8``, ``max_batch_size=8``
    (otherwise phase 6's settings), eight requests started together from
    eight threads (phase 6's 5, 12, 21 and 30 s, 10 s at 8 kHz and 50 s
@@ -170,9 +167,11 @@ JAX package) and fails with a non-zero exit on the first phase that fails:
    ``beam_size`` 1 (the batcher's pool), beside phase 7's sets; a unary call
    cancelled once its decode runs (its steps, from K5's launches, below the
    224-step budget); ``/debug/profile?seconds=1`` during a request (the
-   trace names the port's kernels; the request's wall beside a direct
-   call's, and the server's logged wait, hold and export times of the
-   profiler's stop); then ``serving.main.shutdown``, after
+   trace, from the port's CUPTI recorder, names the port's kernels; the
+   request's wall beside a direct call's, and the server's logged stop
+   (its wait for and hold of graph launches) and write), against the
+   targets of a hold of at most 2 s and a loss of at most 5 s; then
+   ``serving.main.shutdown``, after
    which no non-daemon thread is left. Path ``serving`` launches K1–K6;
    each front end's wall is printed beside a direct call's;
 10. the probe: ``tools/bench_flash_int8.main()`` (path ``probe_flash_int8``)
@@ -262,9 +261,18 @@ JAX package) and fails with a non-zero exit on the first phase that fails:
    tolerances); on (b) K2's last call is a rank's 750 query rows against
    1500 keys. It prints each request's wall beside the unsharded one's,
    each rank's launches and peak memory, and rank 0's replay broadcasts a
-   step on the lone request (tp: its share of the eager step). Phase 3
-   holds K2 at one window and at (b)'s rank shape too (``sp_form`` in the
-   K2 JSON row, with its launches on ``engine_sp``).
+   step on the lone request (tp: its share of the eager step). (c) On
+   each mesh an engine with phase 11's random large-v3-turbo draft (seed
+   SEED + 12, gamma 4), sharded like the target (paths ``engine_tp_spec``,
+   ``engine_sp_spec``; the speculative window one op of the channel, its
+   rounds eager at tp and graphed at sp), beside the unsharded engine with
+   the same draft: the 12 s clip greedy alone, whose decode is held by
+   (a)'s rule; it prints the wall, the rounds and accepted drafts, rank
+   0's decision broadcasts a round and each rank's peak memory, requires
+   rounds > 0 and K4 and K6 launched and held against their plain versions
+   at the rank's heads. Phase 3 holds K2 at one window and at (b)'s rank
+   shape too (``one_window_form`` and ``sp_form`` in the K2 JSON row, the
+   latter with its launches on ``engine_sp``).
 
 ``--tp-worker RANK PORT DIR`` is one rank of phase 12's tensor-parallel
 leg, ``--mesh-worker RANK PORT DIR`` one of phase 13's (started by the
@@ -1358,8 +1366,8 @@ def run(torch, np, profile: bool = False, kernels_only: bool = False) -> int:
     training_phase(torch, np, paths, card)
 
     print(f"== 13. the engine over a mesh: large-v3 int4, two processes on the one card over "
-          f"gloo: tp = 2 (mesh 1x2), then sp = 2 (mesh 1x1x2), beside the unsharded engine "
-          f"[{card}]")
+          f"gloo: tp = 2 (mesh 1x2), then sp = 2 (mesh 1x1x2), each also with the "
+          f"large-v3-turbo draft, beside the unsharded engine [{card}]")
     mesh_phase(torch, np, model, paths, card)
 
     kernels_json = []
@@ -1380,13 +1388,17 @@ def run(torch, np, profile: bool = False, kernels_only: bool = False) -> int:
             **{k: row[k] for k in ("prepass_device_ms", "attention_device_ms", "k2_device_ms")
                if k in row},
         })
-        sp_row = next((c for c in mine if c.get("sp")), None)
-        if sp_row is not None:  # K2 at a rank's rows of sp = 2, launches on phase 13 (b)
-            kernels_json[-1]["sp_form"] = {
-                "check": sp_row["check"], "launches": paths["engine_sp"][name],
-                "launches_path": "engine_sp", **{k: sp_row[k] for k in (
-                    "max_abs_err", "ms", "plain_ms", "device_ms", "bound_ms", "bound_by",
-                    "library_ms")}}
+        forms = {"one_window_form": next((c for c in mine if c.get("sp") is False), None),
+                 "sp_form": next((c for c in mine if c.get("sp")), None)}
+        for form, form_row in forms.items():  # K2 at one window, and a rank's rows of sp = 2
+            if form_row is not None:
+                kernels_json[-1][form] = {
+                    "check": form_row["check"],
+                    **({"launches": paths["engine_sp"][name], "launches_path": "engine_sp"}
+                       if form == "sp_form" else {}),
+                    **{k: form_row[k] for k in ("max_abs_err", "ms", "plain_ms", "device_ms",
+                                                "bound_ms", "bound_by", "library_ms",
+                                                "library_device_ms")}}
         verify = next((c for c in mine if c.get("verify")), None)
         if verify is not None:  # K6 at the verify form, with its launches on the spec path
             kernels_json[-1]["verify_form"] = {
@@ -1593,34 +1605,6 @@ def engine_phase(torch, np, model, paths, card) -> None:
     eng_beam = SttEngine(dataclasses.replace(base, **relaxed), model_name="large-v3",
                          params=model)
     run_set("engine_beam", eng_beam, BEAM)
-
-    # What serve()'s profiler set-up (``init_device_profiler``: an empty
-    # trace with CUDA activities) costs a request: the 12 s clip on the beam
-    # engine, five times before the process's first such trace, five after.
-    from sentiric_stt_whisper_service_tpu_torch.serving.http_server import init_device_profiler
-
-    label, pcm, rate, _ = requests[DURATIONS_S.index(12.0)]
-
-    def walls():
-        out = []
-        for _ in range(5):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            eng_beam.transcribe_pcm16(pcm, rate, RequestOptions(beam_size=BEAM))
-            torch.cuda.synchronize()
-            out.append(time.perf_counter() - t)
-        return out
-
-    before = walls()
-    t = time.perf_counter()
-    init_device_profiler()
-    t_init = time.perf_counter() - t
-    after = walls()
-    print(f"  [engine_beam] {label}, walls without the profiler set up "
-          f"{', '.join(f'{w:.3f}' for w in before)} s; init_device_profiler {t_init:.3f} s; "
-          f"walls after it {', '.join(f'{w:.3f}' for w in after)} s; after - before: mean "
-          f"{1e3 * (np.mean(after) - np.mean(before)):.1f} ms, median "
-          f"{1e3 * (np.median(after) - np.median(before)):.1f} ms [{card}]")
 
     # The default gates: random weights fail the logprob gate, so the
     # ladder climbs from beam 5 at t = 0 to best-of 5 sampling above it.
@@ -2617,10 +2601,11 @@ def serving_phase(torch, np, paths, card, sets) -> None:
         print(f"  [serving] the request inside the profile: wall {inside[0][2]:.3f} s against the "
               f"direct call's {direct_wall:.3f} s (the profile's cost to it "
               f"{inside[0][2] - direct_wall:.3f} s); the server: {written[0]} [{card}]")
-        # The profile's hold (the stop, under the device lock) and the
-        # request's loss, against their targets: a 1 s trace holds the device
-        # at most 2 s, the request loses at most 5 s.
-        held = re.search(r"stopped in ([0-9.]+) s", written[0])
+        # The profile's hold of the device (the recorder's stop holds back
+        # graph launches while it runs) and the request's loss, against
+        # their targets: a 1 s trace holds the device at most 2 s, the
+        # request loses at most 5 s.
+        held = re.search(r"held the device(?:'s graph launches)? ([0-9.]+) s", written[0])
         hold_s = float(held.group(1)) if held else float("nan")
         loss_s = inside[0][2] - direct_wall
         print(f"  [serving] /debug/profile: hold {hold_s:.3f} s (target <= 2 s), the request's loss "
@@ -3369,6 +3354,10 @@ MESH_SHAPES = (("engine_tp", "1x2"), ("engine_sp", "1x1x2"))  # phase 13 (a), (b
 MESH_REQUESTS = (("lone", dict(language="en", beam_size=1), 1),
                  ("pair", dict(language="auto", beam_size=1), 2),
                  ("beam", dict(language="en", beam_size=BEAM), 1))
+# Phase 13 (c): the engine with phase 11's random large-v3-turbo draft
+# (seed SEED + 12, gamma SPEC_GAMMA) on each mesh, the draft sharded like
+# the target: the 12 s clip greedy alone, which takes the speculative route.
+MESH_SPEC_REQUESTS = (("spec", dict(language="en", beam_size=1), 1),)
 
 
 def mesh_settings(shape: str):
@@ -3384,12 +3373,33 @@ def mesh_settings(shape: str):
                     no_speech_threshold=1.0, min_segment_avg_prob=0.0)
 
 
+def mesh_spec_settings(shape: str):
+    """``mesh_settings`` with the large-v3-turbo draft at gamma SPEC_GAMMA."""
+    import dataclasses
+
+    return dataclasses.replace(mesh_settings(shape), draft_model="large-v3-turbo",
+                               spec_gamma=SPEC_GAMMA)
+
+
+def turbo_draft(torch):
+    """Phase 11's random large-v3-turbo draft (seed SEED + 12) on the card,
+    int8 weights, q/k/v unfused (an engine fuses or shards it)."""
+    from sentiric_stt_whisper_service_tpu_torch.models import config_for, init_params
+    from sentiric_stt_whisper_service_tpu_torch.ops.quant import quantize_params
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 12)
+    with torch.inference_mode():
+        return quantize_params(init_params(config_for("large-v3-turbo"), g))
+
+
 def mesh_requests(torch, engine, pcm, requests) -> dict:
     """``requests`` through ``engine.transcribe_pcm16`` (each label's
     requests at once, from threads): per label its walls, stage splits,
-    segments, each decode's (sample_begin, sampled row, average
-    log-probability), recorded at ``_decode_one``, and each alignment
-    pass's scores (the DTW's input), recorded at ``times_of_scores``."""
+    speculative counts (``PerformanceMetrics.spec``), segments, each
+    decode's (sample_begin, sampled row, average log-probability),
+    recorded at ``_decode_one``, and each alignment pass's scores (the
+    DTW's input), recorded at ``times_of_scores``."""
     import threading
 
     from sentiric_stt_whisper_service_tpu_torch.runtime import engine as eng_mod
@@ -3428,7 +3438,7 @@ def mesh_requests(torch, engine, pcm, requests) -> dict:
                 torch.cuda.synchronize()
                 results[i] = (time.perf_counter() - t, m.stages_ms, [
                     (r.text, r.t0, r.t1, r.language, [(k.text, k.t0, k.t1) for k in r.tokens])
-                    for r in res])
+                    for r in res], m.spec)
 
             threads = [threading.Thread(target=go, args=(i,)) for i in range(n)]
             for th in threads:
@@ -3437,8 +3447,8 @@ def mesh_requests(torch, engine, pcm, requests) -> dict:
                 th.join()
             require(all(r is not None for r in results), f"phase 13 {label}: a request failed")
             out[label] = {"walls": [r[0] for r in results], "stages": [r[1] for r in results],
-                          "segments": [r[2] for r in results], "decodes": decodes.get(label, []),
-                          "scores": scores.get(label, [])}
+                          "segments": [r[2] for r in results], "spec": [r[3] for r in results],
+                          "decodes": decodes.get(label, []), "scores": scores.get(label, [])}
     finally:
         del engine._decode_one
         eng_mod.times_of_scores = times_of_scores
@@ -3570,7 +3580,16 @@ def mesh_phase(torch, np, model, paths, card) -> None:
     yard = mesh_requests(torch, yard_engine, pcm, MESH_REQUESTS)
     yard_engine.shutdown()
     del yard_engine
-    rows = {label: yard[label]["decodes"][0][1] for label, _, _ in MESH_REQUESTS}
+    # (c)'s yardstick: the unsharded engine with the draft.
+    yard_engine = SttEngine(mesh_spec_settings("1"), model_name="large-v3", params=model,
+                            draft_params=turbo_draft(torch))
+    mesh_requests(torch, yard_engine, pcm, MESH_SPEC_REQUESTS)  # its class captured first
+    yard.update(mesh_requests(torch, yard_engine, pcm, MESH_SPEC_REQUESTS))
+    yard_engine.shutdown()
+    del yard_engine
+    torch.cuda.empty_cache()
+    rows = {label: yard[label]["decodes"][0][1]
+            for label, _, _ in MESH_REQUESTS + MESH_SPEC_REQUESTS}
     yard_forced = dict(zip(rows, forced_logits(torch, cfg, model, pcm, list(rows.values()))))
     tok = fallback_tokenizer(cfg.n_vocab)
     ids = TokenIds.from_tokenizer(tok)
@@ -3673,6 +3692,45 @@ def mesh_phase(torch, np, model, paths, card) -> None:
               f"decode); {ch['ops']} op messages in {ch['op_s'] * 1e3:.1f} ms (each waits for "
               f"rank 1 to finish the op before; both ranks' kernels share the one card) "
               f"[{card}]")
+    for path, shape in MESH_SHAPES:  # (c): the engine with the draft
+        spath = f"{path}_spec"
+        got, y = outs[0][spath], yard["spec"]
+        m = got["requests"]["spec"]
+        equal, total, drift = mesh_decode_check(
+            torch, shape, "spec", y["decodes"][0], m["decodes"], yard_forced["spec"],
+            got["forced"]["spec"], margins("spec"))
+        spec, ch = m["spec"][0], got["channel"]
+        require(spec.get("rounds", 0) > 0, f"{spath}: the request did not decode speculatively")
+        print(f"  [{spath}] the 12 s clip with the large-v3-turbo draft, gamma {SPEC_GAMMA}: wall "
+              f"{m['walls'][0]:.3f} s (unsharded with the draft {y['walls'][0]:.3f} s); "
+              f"{spec['rounds']} rounds, {spec['emitted']} tokens, {spec['accepted']} accepted "
+              f"drafts (unsharded {y['spec'][0]}); {equal} of {total} decodes equal the "
+              f"unsharded one's, teacher-forced drift {drift:.4f}; segments "
+              f"{'equal' if m['segments'][0] == y['segments'][0] else 'differ'}; rank 0's "
+              f"decision broadcasts {ch['decisions']} ({ch['decisions'] / spec['rounds']:.2f} a "
+              f"round, {ch['decision_s'] * 1e3:.1f} ms); stages ms "
+              f"{', '.join(f'{k} {v:.1f}' for k, v in m['stages'][0].items())} [{card}]")
+        for rank, out in enumerate(outs):
+            mine = out[spath]
+            print(f"  [{spath}] rank {rank}: {mine['heads']} decoder heads, the draft's "
+                  f"{mine['draft_heads']}; peak device memory {mine['peak'] / 2**30:.2f} GiB "
+                  f"(this process); launches {mine['launches']} [{card}]")
+            require(mine["draft_heads"] == mine["heads"], f"{spath} rank {rank}: the draft "
+                    f"holds {mine['draft_heads']} heads, the target {mine['heads']}")
+            for name, (err, tol, shp) in mine["kernel_checks"].items():
+                print(f"  [{spath}] rank {rank} {name} at the rank's shapes q {shp[0]}, "
+                      f"{shp[1]} (its last call): max_abs_err {err:.3e} against its plain "
+                      f"version (tol {tol:.2e}, as phase 3)")
+                require(err <= tol, f"{spath} rank {rank}: {name} max_abs_err {err:.3e} > "
+                                    f"tol {tol:.2e}")
+            for name in ("K4 decode_attention_i4", "K6 beam_cross_attention_i4"):
+                shp = mine["kernel_checks"].get(name, (0, 0, None))[2]
+                require(shp is not None and shp[0][1] == mine["heads"],
+                        f"{spath} rank {rank}: {name} was not held at the rank's "
+                        f"{mine['heads']} heads: {shp}")
+        paths[spath] = got["launches"]
+        need_launched(paths, spath, ("log_mel", "flash_attention", "decode_attention_i4",
+                                     "beam_cross_attention"))
     for rank, out in enumerate(outs):
         checked = out["engine_sp"]["kernel_checks"]
         shp = checked["K2 flash_attention"][2] if "K2 flash_attention" in checked else None
@@ -3743,15 +3801,21 @@ def mesh_worker(torch, rank: int, port: int, tmp: Path) -> int:
         return ba.beam_cross_attention_reference(q, unpack_nibbles_i8(k), unpack_nibbles_i8(v),
                                                  ks, vs, **kw)
 
-    out = {}
-    for path, shape in MESH_SHAPES:
+    def serve_mesh(path, settings, requests, draft=None) -> dict:
+        """One engine over the mesh: rank 0 runs ``requests`` (the first
+        alone, with the channel's counts around it), then the yardstick
+        rows' teacher-forced logits as one op, and closes; the others
+        follow. Every rank then holds the kernels against their plain
+        versions on their last call's inputs."""
         last.clear()
         for name, attr in patched.items():
             setattr(whisper_mod, attr, keep(name, originals[attr]))
         torch.cuda.reset_peak_memory_stats()
         try:
-            engine = SttEngine(mesh_settings(shape), model_name="large-v3", params=full)
+            engine = SttEngine(settings, model_name="large-v3", params=full, draft_params=draft)
             mine = {"heads": text_heads(cfg, engine.params)}
+            if draft is not None:
+                mine["draft_heads"] = text_heads(engine.draft_cfg, engine.draft_params)
 
             def forced_op(pcm, rows, own=None, mine=mine, engine=engine):
                 mine["launches"] = dict(kernels.LAUNCHES)  # the path's, before this pass
@@ -3760,20 +3824,20 @@ def mesh_worker(torch, rank: int, port: int, tmp: Path) -> int:
             engine._replay.register("forced", forced_op)
             kernels.reset_launch_counts()
             if engine.is_leader:
-                requests = MESH_REQUESTS if path == "engine_tp" else MESH_REQUESTS[:1]
-                if path == "engine_sp":  # graphed: its classes captured first
+                if path.startswith("engine_sp"):  # graphed: its classes captured first
                     mesh_requests(torch, engine, ref["pcm"], requests)
                 stats = engine._replay.stats
                 before = dataclasses.astuple(stats)
-                lone = mesh_requests(torch, engine, ref["pcm"], requests[:1])
+                first = requests[0][0]
+                alone = mesh_requests(torch, engine, ref["pcm"], requests[:1])
                 mine["channel"] = {"ops": stats.ops - before[0],
                                    "op_s": stats.op_seconds - before[1],
                                    "decisions": stats.decisions - before[2],
                                    "decision_s": stats.decision_seconds - before[3],
-                                   "decode_ms": lone["lone"]["stages"][0].get("decode", 0.0),
+                                   "decode_ms": alone[first]["stages"][0].get("decode", 0.0),
                                    "steps": MESH_TOKENS}
-                mine["requests"] = {**lone, **mesh_requests(torch, engine, ref["pcm"],
-                                                             requests[1:])}
+                mine["requests"] = {**alone, **mesh_requests(torch, engine, ref["pcm"],
+                                                              requests[1:])}
                 engine.shutdown()
                 labels = [lb for lb, _, _ in requests]
                 forced = engine._replay.call("forced", ref["pcm"],
@@ -3794,10 +3858,18 @@ def mesh_worker(torch, rank: int, port: int, tmp: Path) -> int:
                             [tuple(q.shape), tuple(rest[0].shape)])
         mine["kernel_checks"] = checks
         mine["peak"] = torch.cuda.max_memory_allocated()
-        out[path] = mine
         del engine
         last.clear()
         torch.cuda.empty_cache()
+        return mine
+
+    turbo = turbo_draft(torch)
+    out = {}
+    for path, shape in MESH_SHAPES:
+        requests = MESH_REQUESTS if path == "engine_tp" else MESH_REQUESTS[:1]
+        out[path] = serve_mesh(path, mesh_settings(shape), requests)
+        out[f"{path}_spec"] = serve_mesh(f"{path}_spec", mesh_spec_settings(shape),
+                                         MESH_SPEC_REQUESTS, draft=turbo)
     torch.save(out, tmp / f"rank{rank}.pt")
     dist.barrier()
     dist.destroy_process_group()

@@ -149,6 +149,14 @@ def to_device(a, device: torch.device) -> torch.Tensor:
     return t.pin_memory().to(device, non_blocking=True)
 
 
+# Held shared around every CUDA graph launch and capture in the process, and
+# exclusively by a device trace's start and stop (``serving/device_trace``):
+# CUPTI's activity calls deadlock beside a graph launch in another thread
+# (``chip_profile.py --cupti-probe``). A launch holds it for its host call
+# only, so the trace waits for at most one launch per thread.
+GRAPH_LAUNCHES = DeviceLock()
+
+
 def read_bound(pos: int, bounds) -> int:
     """The read bound of a step at ``pos``: the first of the ascending
     ``bounds`` above it, else the last (the whole slab)."""
@@ -206,7 +214,8 @@ class StepLoop:
             self.step(self.state, bound)
             return
         graph, launches = self.graphs[bound]
-        graph.replay()
+        with GRAPH_LAUNCHES.shared():
+            graph.replay()
         for name, n in launches.items():
             kernels.LAUNCHES[name] += n
 
@@ -243,7 +252,7 @@ def _capture(loop: StepLoop, bounds, pool) -> int:
             graph.register_generator_state(loop.generator)
         before = dict(kernels.LAUNCHES)
         try:
-            with torch.cuda.graph(graph, pool=pool):
+            with GRAPH_LAUNCHES.shared(), torch.cuda.graph(graph, pool=pool):
                 loop.step(loop.state, bound)
         finally:
             added = {k: kernels.LAUNCHES[k] - n for k, n in before.items()}

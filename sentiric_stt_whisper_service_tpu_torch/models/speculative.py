@@ -42,6 +42,7 @@ from typing import Optional
 
 import torch
 
+from ..parallel.replay import current as replay_channel
 from .graphs import DecodeGraphs, StepLoop, graphable, to_host, window_loop
 from .sampling import (
     DecodeResult,
@@ -172,16 +173,30 @@ def run_rounds(loop: StepLoop, sample_begin: int, max_len: int) -> None:
     """The host side: replay ``SYNC_ROUNDS`` rounds (one when eager) between
     reads of the position and the done flag, until the window ends. A round
     emits at least one token, so ``max_len - sample_begin`` rounds always
-    suffice."""
+    suffice. Inside an op of a mesh's replay channel
+    (``parallel/replay.py``) whether the window goes on is rank 0's
+    answer, which every rank takes (as ``graphs.run_window`` routes a
+    window's stop); only without a channel does the read also shorten the
+    last batch of rounds to the tokens left."""
     st = loop.state
+    channel = replay_channel()
     left = max(0, max_len - sample_begin)
+
+    def read() -> tuple[int, bool]:
+        pos, done = to_host(torch.cat([st.pos, st.done.to(torch.int64)])).tolist()
+        return pos, bool(done) or pos >= max_len
+
     while left > 0:
         n = min(left, SYNC_ROUNDS if loop.graphed else 1)
         for _ in range(n):
             loop.advance(0)
         left -= n
-        pos, done = to_host(torch.cat([st.pos, st.done.to(torch.int64)])).tolist()
-        if done or pos >= max_len:
+        if channel is not None:
+            if channel.decide(lambda: read()[1]):
+                return
+            continue
+        pos, over = read()
+        if over:
             return
         left = min(left, max_len - pos)
 

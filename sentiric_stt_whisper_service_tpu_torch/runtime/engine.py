@@ -84,17 +84,20 @@ What differs from the JAX package:
     replicates the engine's arrays, as in the JAX engine: every rank holds
     every row. Under a tp group the decode steps run eagerly (gloo's
     all-reduces run on the host, where a CUDA graph cannot capture them);
-    with dp or sp alone they stay graphed. Lock order on rank 0: the
+    with dp or sp alone they stay graphed. A draft is sharded like the
+    target (unfused), and a speculative window is one op: its rounds run
+    on every rank's shard, and rank 0 decides its abort and, at each read
+    of the device, whether it goes on. Lock order on rank 0: the
     channel's order lock first, then the engine's locks inside the op
     (``_device_lock``, ``_eager``, ``DeviceLock.shared()``, a capture's
     exclusive hold), so that a capture inside an op never waits on a
     thread that waits for the channel.
-  * **Refused, not hidden**: ``beam_size`` above ``config.MAX_BEAM_SIZE``,
-    a draft of another encoder width, and a draft together with a mesh
-    (ROADMAP queue 1 item 15c) raise at construction; a request's
-    ``beam_size`` above the limit raises. ``FLASH_ATTN=0`` has no effect
-    here: the encoder's attention runs K2 on the card (the engine says so
-    in its log when it is built).
+  * **Refused, not hidden**: ``beam_size`` above ``config.MAX_BEAM_SIZE``
+    and a draft of another encoder width raise at construction (as do, on
+    a mesh, a target or a draft whose heads the tp degree does not
+    divide); a request's ``beam_size`` above the limit raises.
+    ``FLASH_ATTN=0`` has no effect here: the encoder's attention runs K2
+    on the card (the engine says so in its log when it is built).
   * ``warmup()`` captures the decode graph classes of the configured ladder
     and of a streaming session's greedy partial ticks, and, at
     ``parallel_requests`` > 1, builds the batcher's pools (their step graphs)
@@ -315,10 +318,6 @@ class SttEngine:
         self.device = resolve_device(settings.device)
         self.mesh = None
         if settings.mesh_shape not in ("1", "", None):
-            if (settings.draft_model or "").strip() or draft_params is not None:
-                raise NotImplementedError(
-                    f"draft_model with mesh_shape={settings.mesh_shape!r}: speculative "
-                    "decoding over a mesh is not ported yet (ROADMAP queue 1 item 15c)")
             mesh = make_mesh(settings.mesh_shape, device=self.device.type)
             if mesh.device_mesh is not None:
                 self.mesh, self.device = mesh, mesh.device
@@ -403,7 +402,8 @@ class SttEngine:
         self._beam_inflight = 0
         self._count_lock = threading.Lock()
         for name, op in (("encode", self._encode_op), ("detect", self._detect_op),
-                         ("decode", self._decode_window_op), ("align", self._align_op),
+                         ("decode", self._decode_window_op), ("decode_spec", self._decode_spec_op),
+                         ("align", self._align_op),
                          ("align_batch", self._align_batch_op),
                          ("new_batcher", self._new_batcher_op), ("new_gang", self._new_gang_op),
                          ("release", self._release_op)):
@@ -429,9 +429,10 @@ class SttEngine:
 
     def _load_draft(self, dm: str, draft_params, random_init: bool) -> None:
         """The speculative draft (``draft_params``, a ``Whisper``, when the
-        caller gives one): loaded, quantized and fused as the target. Its
-        cross K/V comes from the target's encoder output, so its encoder
-        width must match."""
+        caller gives one): loaded, quantized and fused as the target, or on
+        a mesh sharded as the target (q/k/v unfused; every rank builds the
+        same draft before it takes its shard). Its cross K/V comes from the
+        target's encoder output, so its encoder width must match."""
         settings = self.settings
         draft_cfg = config_for(dm) if draft_params is None else draft_params.cfg
         if draft_cfg.n_audio_state != self.cfg.n_audio_state:
@@ -453,7 +454,10 @@ class SttEngine:
         with torch.inference_mode():
             if self.quantized and not is_quantized(draft_params):
                 quantize_params(draft_params)
-            fuse_decoder_qkv(draft_params)
+            if self.mesh is None:
+                fuse_decoder_qkv(draft_params)
+        if self.mesh is not None:
+            draft_params = shard_params(self.mesh, draft_params)
         self.draft_cfg, self.draft_params = draft_params.cfg, draft_params
         if settings.parallel_requests > 1:
             from ..serving.suts_logging import suts_warn
@@ -960,27 +964,43 @@ class SttEngine:
         engine's own graph class, as the JAX package routes it: the abort
         polled once before the launch, the prefill at the prompt's own
         bucket (no pinning) and ``max_len`` = prefill + ``sample_len``; every
-        window of one encoder width shares one graph class. Its counts go
-        to the request's ``PerformanceMetrics.spec``."""
-        if should_abort is not None and should_abort():
-            return None
+        window of one encoder width shares one graph class. One op of the
+        replay channel on a mesh. Its counts go to the request's
+        ``PerformanceMetrics.spec``."""
         ctx = self.cfg.n_text_ctx
         tinit = np.full((1, ctx), self.ids.eot, np.int64)
         tinit[0, : len(init_tokens)] = init_tokens
         prefill_len = prompt_bucket(sample_begin)
-        stats = SpecStats()
-        with self._stage("decode"), self._device_lock, self._device.shared():
-            res = _host(decode_window_spec(
-                self.cfg, self.params, xa_kv, self.draft_cfg, self.draft_params, xa_kv_draft,
-                to_device(tinit, self.device), sample_begin, sot_index, self.ids,
-                self.suppress_mask, max_len=min(ctx, prefill_len + sample_len),
-                gamma=max(1, self.settings.spec_gamma), prefill_len=prefill_len,
-                self_dtype=self.self_dtype, graphs=self.graphs, stats=stats))
+        with self._stage("decode"):
+            out = self._replay.call(
+                "decode_spec", xa_kv, xa_kv_draft, tinit, sample_begin, sot_index, prefill_len,
+                min(ctx, prefill_len + sample_len), should_abort is not None, own=should_abort)
+        if out is None:
+            return None
+        res, stats = out
         counts = getattr(self._request, "spec", None)
         if counts is not None:
             for name, n in vars(stats).items():
                 counts[name] = counts.get(name, 0) + n
         return res
+
+    def _decode_spec_op(self, xa_kv, xa_kv_draft, tinit, sample_begin, sot_index, prefill_len,
+                        max_len, abortable, own=None):
+        """The window of ``_decode_spec`` on this rank's shard: rank 0's
+        abort poll (``own``) decides for every rank, as its stop does inside
+        ``run_rounds``. Returns (the result on the host, its ``SpecStats``),
+        or None if aborted."""
+        if abortable and self._replay.decider(own)():
+            return None
+        stats = SpecStats()
+        with self._device_lock, self._device.shared():
+            res = _host(decode_window_spec(
+                self.cfg, self.params, xa_kv, self.draft_cfg, self.draft_params, xa_kv_draft,
+                to_device(tinit, self.device), sample_begin, sot_index, self.ids,
+                self.suppress_mask, max_len=max_len, gamma=max(1, self.settings.spec_gamma),
+                prefill_len=prefill_len, self_dtype=self.self_dtype, graphs=self.graphs,
+                stats=stats))
+        return res, stats
 
     def _wait_s(self) -> float:
         """How long a request waits on the batcher or the gang (the JAX

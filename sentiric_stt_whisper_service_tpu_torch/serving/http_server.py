@@ -9,9 +9,11 @@ routes and JSON.
     beam_size/audio_ctx/translate/diarization/prosody_lpf_alpha/
     prosody_pitch_gate; the tenant-id header gate; text/language/duration/
     segments[...affective block...]/meta{rtf,...};
-  * ``POST /debug/profile?seconds=N``: a ``torch.profiler`` trace (CPU and,
-    on the card, CUDA activities) of the next N seconds, written as a Chrome
-    trace into a new temporary directory whose path the reply gives;
+  * ``POST /debug/profile?seconds=N``: a trace of the next N seconds (on
+    the card every kernel it runs, through the port's CUPTI recorder,
+    ``serving/device_trace.py``; on the CPU ``torch.profiler``'s CPU
+    activities), written as a Chrome trace into a new temporary directory
+    whose path the reply gives;
   * the Studio static files (``studio/`` at the repository root) at ``/``;
   * ``GET /metrics`` on its own port with CORS.
 
@@ -32,6 +34,7 @@ from ..audio import parse_wav_robust
 from ..config import Settings
 from ..prosody.extractor import ProsodyOptions
 from ..runtime import EngineBusyException, RequestOptions, SttEngine
+from . import device_trace
 from .metrics import AppMetrics
 from .suts_logging import APP_VERSION, suts_error, suts_info
 
@@ -40,18 +43,6 @@ CORS = {"Access-Control-Allow-Origin": "*"}
 
 def _json(data, status=200):
     return web.json_response(data, status=status, headers=CORS)
-
-
-def init_device_profiler() -> None:
-    """Start and stop an empty ``torch.profiler`` trace with CUDA activities.
-    The profiler's device side initialises only in the thread that imported
-    torch (kineto registers its client there); ``serve`` calls this from that
-    thread, so that ``/debug/profile``, which runs on the HTTP server's own
-    thread, records the card's kernels."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
-        pass
 
 
 def segments_json(results) -> list[dict]:
@@ -127,10 +118,9 @@ class HttpServer:
         )
 
     async def profile(self, request: web.Request):
-        """Trace the next ``seconds`` (at most 30) with ``torch.profiler``:
-        the card's kernels of every thread (CUPTI) when the engine runs on
-        the card, CPU activities on the CPU. Replies with the directory of
-        the Chrome trace."""
+        """Trace the next ``seconds`` (at most 30): on the card every kernel
+        it runs, from every thread (CUPTI); on the CPU the CPU activities.
+        Replies with the directory of the Chrome trace."""
         import tempfile
 
         try:
@@ -143,38 +133,43 @@ class HttpServer:
         return _json({"trace_dir": out_dir, "seconds": seconds})
 
     def _trace(self, seconds: float, path: str) -> None:
-        """One executor thread starts the profiler, sleeps, stops it (the
-        profiler's state belongs to the thread that started it) and writes
-        the trace. It starts and stops with no thread launching on the card:
-        stopping it beside a graph replay in another thread deadlocks both
-        (with or without kineto's CUPTI teardown). The engine's device lock,
-        held exclusively, waits for the device work in flight (a decode
-        window at most) and holds new work back while the profiler stops,
-        which takes about 50 us per kernel recorded (and holds the GIL); the
-        export runs after it is released. On the card only CUDA activities
-        are taken: the CPU ones would record this thread's sleep alone. The
-        times of the wait, the stop and the export are logged
-        (PROFILE_WRITTEN)."""
+        """One executor thread records the next ``seconds`` and writes the
+        trace; the device and the request threads run on meanwhile, as
+        beside the JAX package's ``jax.profiler`` trace. On the card the
+        port's recorder (``device_trace.record``) takes the card's kernels,
+        eager and graph nodes, and writes the JSON after its stop, outside
+        the interpreter lock and without the engine's device lock (that
+        lock, held around ``torch.profiler``'s stop, held the card for tens
+        of seconds); its start and stop hold back graph launches only
+        while they run. On the CPU ``torch.profiler`` takes the CPU
+        activities. The stop's wait and hold and the write's seconds are
+        logged (PROFILE_WRITTEN)."""
+        if self.engine.device.type == "cuda":
+            st = device_trace.record(seconds, path)
+            suts_info(
+                "PROFILE_WRITTEN", "", "", "",
+                "Trace of %.1f s written to %s: %d kernel events (%d records dropped); the stop "
+                "waited %.3f s for the graph launches in flight and held the device's graph "
+                "launches %.3f s; written in %.3f s",
+                seconds, path, st.events, st.dropped, st.wait_s, st.stop_s, st.write_s,
+            )
+            return
         from torch.profiler import ProfilerActivity, profile
 
-        cuda = self.engine.device.type == "cuda"
-        prof = profile(activities=[ProfilerActivity.CUDA if cuda else ProfilerActivity.CPU])
-        with self.engine._device.exclusive():
-            prof.start()
+        prof = profile(activities=[ProfilerActivity.CPU])
+        prof.start()
         try:
             time.sleep(seconds)
         finally:
             t0 = time.perf_counter()
-            with self.engine._device.exclusive():
-                t1 = time.perf_counter()
-                prof.stop()
-                t2 = time.perf_counter()
+            prof.stop()
+        t1 = time.perf_counter()
         prof.export_chrome_trace(path)
         suts_info(
             "PROFILE_WRITTEN", "", "", "",
-            "Trace of %.1f s written to %s: waited %.3f s for the device, stopped in %.3f s "
-            "holding it, exported in %.3f s",
-            seconds, path, t1 - t0, t2 - t1, time.perf_counter() - t2,
+            "Trace of %.1f s written to %s: the stop waited 0.000 s and held the device 0.000 "
+            "s (no lock taken): it took %.3f s; written in %.3f s",
+            seconds, path, t1 - t0, time.perf_counter() - t1,
         )
 
     async def transcribe(self, request: web.Request):

@@ -34,7 +34,7 @@ from ..config import Settings, load_settings
 from ..parallel import maybe_initialize_distributed
 from ..runtime import SttEngine
 from .grpc_server import build_server
-from .http_server import HttpServer, MetricsServer, init_device_profiler
+from .http_server import HttpServer, MetricsServer
 from .metrics import AppMetrics
 from .suts_logging import setup_logging, suts_error, suts_info
 
@@ -168,8 +168,6 @@ def serve(settings: Settings | None = None, random_init: bool = False, block=Tru
         suts_info("WARMUP_START", "", "", "", "Capturing the decode graph classes")
         dt = engine.warmup()
         suts_info("WARMUP_DONE", "", "", "", "Warmup finished in %.1fs", dt)
-    if engine.device.type == "cuda":
-        init_device_profiler()
 
     grpc_server = build_server(engine, metrics, settings)
     grpc_server.start()

@@ -18,6 +18,7 @@ to fail).
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import os
@@ -53,6 +54,10 @@ ENGINE_SETTINGS = dict(enable_vad=False, parallel_requests=2, fused_idle_fastpat
 ENGINE_FORMS = {"fp32": "float32", "int4": "int4"}
 ENGINE_TOKENS = 32  # RequestOptions.max_decode_tokens of every request
 BATCHER_TOKENS = 24
+# The engine with a speculative draft (the target's own weights, a model of
+# its own: most proposals kept, some corrected): a lone greedy request takes
+# the speculative route (the batcher idle).
+DRAFT_SETTINGS = dict(ENGINE_SETTINGS, draft_model="test-8h", spec_gamma=3)
 
 
 def tree_of(inp) -> dict:
@@ -207,16 +212,72 @@ def engine_requests(eng, inp, prefix: str, out: dict, stream: bool = False) -> N
     out[f"{prefix}/beam"] = np.array(json.dumps(segments(
         eng.transcribe(clip, 16000, opts(language="en", beam_size=5, **cap)))))
     if stream:
-        from sentiric_stt_whisper_service_tpu_torch.runtime.streaming import StreamingSession
-
-        raw = (clip * 32767).astype("<i2").tobytes()
-        session = StreamingSession(eng, opts(language="en", **cap))
-        events = []
-        for i in range(0, len(raw), 6400):
-            events += session.feed(raw[i:i + 6400])
-        events += session.feed(b"")
         out[f"{prefix}/stream"] = np.array(json.dumps(
-            [(e.is_final, e.result.text, e.result.t0, e.result.t1) for e in events]))
+            stream_events(eng, clip, opts(language="en", **cap), 6400)))
+
+
+def stream_events(eng, clip, options, chunk: int) -> list:
+    """A ``StreamingSession`` fed the clip as PCM16 in ``chunk``-byte wire
+    chunks, then EOS: its events (final, text, t0, t1)."""
+    from sentiric_stt_whisper_service_tpu_torch.runtime.streaming import StreamingSession
+
+    raw = (clip * 32767).astype("<i2").tobytes()
+    session = StreamingSession(eng, options)
+    events = []
+    for i in range(0, len(raw), chunk):
+        events += session.feed(raw[i:i + chunk])
+    events += session.feed(b"")
+    return [(e.is_final, e.result.text, e.result.t0, e.result.t1) for e in events]
+
+
+def draft_requests(eng, inp, prefix: str, out: dict, stream: bool = False) -> None:
+    """Rank 0's requests through an engine with a draft: a greedy request
+    aborted once its window is encoded (the abort fires at the speculative
+    op's poll, inside the op on every rank), then the request served (the
+    speculative route), which the followers must replay in step, with its
+    ``PerformanceMetrics.spec``; with ``stream`` a ``StreamingSession`` fed
+    the clip in 1 s chunks (its ticks decode speculatively)."""
+    clip = clip_of(inp)
+    opts = engine_mod.RequestOptions
+    cap = dict(language="en", max_decode_tokens=ENGINE_TOKENS)
+    encoded, decode_spec = threading.Event(), eng._decode_spec
+
+    def entered(*a, **kw):
+        encoded.set()
+        return decode_spec(*a, **kw)
+
+    eng._decode_spec = entered
+    try:
+        aborted = eng.transcribe(clip, 16000, opts(should_abort=encoded.is_set, **cap))
+    finally:
+        del eng._decode_spec
+    out[f"{prefix}/spec_aborted"] = np.array(len(aborted))
+    metrics = engine_mod.PerformanceMetrics()
+    out[f"{prefix}/spec_segments"] = np.array(json.dumps(segments(
+        eng.transcribe(clip, 16000, opts(**cap), metrics))))
+    out[f"{prefix}/spec_metrics"] = np.array(json.dumps(metrics.spec))
+    if stream:
+        out[f"{prefix}/spec_stream"] = np.array(json.dumps(
+            stream_events(eng, clip, opts(**cap), 32000)))
+
+
+
+def spec_outcomes(eng) -> list:
+    """Wrap the engine's speculative op: the list it returns gets, per op
+    this rank runs, the window's rounds (-1 where it aborted) and the
+    speculative counts of a request on this rank's thread (None on a
+    follower, which serves no request)."""
+    outcomes, op = [], eng._replay._ops["decode_spec"]
+
+    def counted(*args, own=None):
+        got = op(*args, own=own)
+        request = getattr(eng._request, "spec", None)
+        outcomes.append([-1 if got is None else got[1].rounds,
+                         None if request is None else dict(request)])
+        return got
+
+    eng._replay.register("decode_spec", counted)
+    return outcomes
 
 
 def shard_checks(inp, cfg, mesh, out: dict) -> None:
@@ -253,11 +314,25 @@ def task_engine(inp, cfg, out: dict) -> None:
     the requests (``engine_requests``) and closes the channel; the other
     ranks follow. Every rank records the (query rows, key rows) of each K2
     route call of its encodes, and its channel's counts; a follower the
-    values it still kept when rank 0 closed."""
+    values it still kept when rank 0 closed. Then the same form with a
+    draft (``draft_requests``): every rank records its draft's heads and
+    its speculative ops' outcomes (``spec_outcomes``). First, every rank
+    builds an engine whose draft has one head, which tp = 2 does not
+    divide: the refusal's message."""
     shape = str(inp["mesh"])
     mesh = parallel.make_mesh(shape, device="cpu")
     if mesh.shape["tp"] > 1:
         shard_checks(inp, cfg, mesh, out)
+        one_head = dataclasses.replace(cfg, n_audio_head=1, n_text_head=1)
+        try:
+            engine_mod.SttEngine(
+                Settings(device="cpu", mesh_shape=shape, compute_type="float32",
+                         **DRAFT_SETTINGS),
+                model_name="test-8h", params=model_of(inp, cfg),
+                draft_params=whisper.init_params(one_head, torch.Generator().manual_seed(1)))
+            out["draft_refused"] = np.array("")
+        except ValueError as e:
+            out["draft_refused"] = np.array(str(e))
     routes = []
     k2 = whisper.flash_attention
 
@@ -286,6 +361,24 @@ def task_engine(inp, cfg, out: dict) -> None:
             stats = eng._replay.stats
             out[f"{form}/channel"] = np.array([stats.ops, stats.decisions,
                                                stats.op_seconds + stats.decision_seconds])
+            del eng
+            # The same form with a draft, sharded like the target.
+            settings = Settings(device="cpu", mesh_shape=shape, compute_type=compute,
+                                **DRAFT_SETTINGS)
+            eng = engine_mod.SttEngine(settings, model_name="test-8h", params=model_of(inp, cfg),
+                                       draft_params=model_of(inp, cfg))
+            out[f"{form}/draft_heads"] = np.array(whisper.text_heads(cfg, eng.draft_params))
+            outcomes = spec_outcomes(eng)
+            if eng.is_leader:
+                draft_requests(eng, inp, form, out, stream=form == "fp32")
+                eng.shutdown()
+                gc.collect()
+                eng._replay.flush()
+                eng.close()
+            else:
+                eng.follow()
+                out[f"{form}/draft_kept_at_stop"] = np.array(eng._replay.kept_at_stop)
+            out[f"{form}/spec_outcomes"] = np.array(json.dumps(outcomes))
             del eng
     finally:
         whisper.flash_attention = k2

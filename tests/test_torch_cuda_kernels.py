@@ -369,3 +369,52 @@ def test_flash_q8(dev, mode, B, H, L):
         assert err.max().item() <= 2 * 2**-7 * want.float().abs().max().item()
     else:
         assert bool((err <= full8_tolerance(q, k, v, want)).all())
+
+
+def test_device_trace_records_eager_and_graph_kernels(dev, tmp_path):
+    """The recorder behind ``/debug/profile`` (``serving/device_trace``, the
+    port's CUPTI source ``csrc/device_trace.cpp``): a trace taken on another
+    thread while this one launches K1 eagerly and replays a CUDA graph of
+    16 small kernels captured before the trace holds K1 by name and every
+    node of each replay, as Chrome trace events, and drops nothing. The
+    launches start half a second into the trace (its start, CUPTI's set-up
+    included, takes tens of milliseconds)."""
+    import collections
+    import json
+    import threading
+    import time
+
+    from sentiric_stt_whisper_service_tpu_torch.serving import device_trace
+
+    x = torch.randn(64, 64, device=dev)
+    audio = torch.randn(1, 16000, device=dev) * 0.1
+    fused_mel.log_mel_power_fused(audio, 80)  # the kernels built and loaded first
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(16):
+            x.mul_(1.0001)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(16):
+            x.mul_(1.0001)
+    torch.cuda.synchronize()
+    device_trace.lib()  # built before the trace
+    stats = []
+    tracer = threading.Thread(
+        target=lambda: stats.append(device_trace.record(2.0, str(tmp_path / "trace.json"))))
+    tracer.start()
+    time.sleep(0.5)
+    fused_mel.log_mel_power_fused(audio, 80)
+    for _ in range(5):
+        graph.replay()
+    torch.cuda.synchronize()
+    tracer.join(timeout=60)
+    assert not tracer.is_alive()
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    names = collections.Counter(e["name"] for e in events)
+    assert stats[0].events == len(events) == stats[0].kernels and stats[0].dropped == 0
+    assert any("log_mel_kernel" in n for n in names), names
+    assert sum(c for n, c in names.items() if "mul" in n.lower()) >= 5 * 16, names
+    assert all(e["ph"] == "X" and e["dur"] >= 0 for e in events)

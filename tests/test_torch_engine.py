@@ -280,7 +280,8 @@ def test_refused_settings(params):
     with pytest.raises(ValueError, match="needs 8 devices, have 1"):
         engine.SttEngine(Settings(device="cpu", mesh_shape="2x4"), model_name="test",
                          params=model)
-    with pytest.raises(NotImplementedError, match="item 15c"):
+    # A draft under a mesh without its processes: refused as the target is.
+    with pytest.raises(ValueError, match="needs 8 devices, have 1"):
         engine.SttEngine(Settings(device="cpu", mesh_shape="2x4", draft_model="test"),
                          model_name="test", params=model)
     # A draft loads (its own seed under random_init), quantized and fused as

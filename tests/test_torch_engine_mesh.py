@@ -24,10 +24,21 @@ form and, at fp32, against the JAX engine at the same mesh on the virtual
     within 1e-5;
   * beam 5 through the gang: equal segments;
   * a streaming session (fp32): partials and finals equal to the same
-    stream on the single-device engine.
+    stream on the single-device engine;
+  * with a speculative draft (the target's weights as a ``test-8h`` model
+    of its own, sharded like the target: most proposals kept, some
+    corrected): a greedy request equal to the port's single-device engine
+    with the same draft and, at fp32 on "2x2", to the JAX engine with it at
+    that mesh; ``PerformanceMetrics.spec`` on rank 0 with rounds > 0, and
+    every rank's speculative ops running the same rounds, the followers
+    with no request's counts; a request aborted at the speculative op's
+    poll (once its window is encoded) ends that op on every rank, and the
+    request after it is served in step; a streaming session's ticks and
+    final decode speculatively, equal to the single-device stream.
 
-Also: every rank holds 4 heads; a follower keeps no cross K/V after rank 0
-closes the channel; on the sp mesh each rank's encoder attention reaches
+Also: every rank's model and draft hold 4 heads; a draft of one head,
+which tp = 2 does not divide, is refused on every rank; a follower keeps
+no cross K/V after rank 0 closes the channel; on the sp mesh each rank's encoder attention reaches
 K2's route with its 750 query rows against all 1500 keys; a tp shard's
 cross-attention weights (reduced and stacked), language probabilities and
 alignment scores equal the unsharded model's; K2's wrapper with fewer query
@@ -62,11 +73,13 @@ from sentiric_stt_whisper_service_tpu_torch.runtime import engine
 from sentiric_stt_whisper_service_tpu_torch.tokenizer import fallback_tokenizer
 from _torch_mesh_worker import (
     BATCHER_TOKENS,
+    DRAFT_SETTINGS,
     ENGINE_FORMS,
     ENGINE_SETTINGS,
     ENGINE_TOKENS,
     IDLE_S,
     IDLE_TIMEOUT_S,
+    draft_requests,
     engine_requests,
     finish,
     run,
@@ -78,7 +91,8 @@ from _torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 CFG_R = ref_whisper.config_for("test-8h", dtype=jnp.float32)
 CFG = whisper.config_for("test-8h", dtype=torch.float32)
 MESHES = ("2x2", "1x2x2")
-CASES = ("segments", "concurrent", "beam")
+CASES = ("segments", "concurrent", "beam", "spec_segments", "spec_metrics", "spec_outcomes",
+         "spec_stream")
 
 
 def path_str(path) -> str:
@@ -143,22 +157,30 @@ def unpack(raw: dict, form: str) -> dict:
 @pytest.fixture(scope="module")
 def results(params, inputs, tmp_path_factory):
     """Both meshes' workers started together; meanwhile the port's
-    single-device engine at each form and the JAX engine at each mesh (fp32)
-    run the same cases here."""
+    single-device engine at each form (with and without the draft) and the
+    JAX engine at each mesh (fp32; with the draft at "2x2") run the same
+    cases here."""
     launched = {}
     for shape in MESHES:
         tmp = tmp_path_factory.mktemp(f"engine_{shape}")
         launched[shape] = (start("engine", inputs | {"mesh": np.array(shape)}, tmp, world=4),
                            tmp)
+    def carry(tree):
+        return from_jax_numpy(jax.tree.map(np.asarray, tree), CFG, "cpu")
+
     try:
         single = {}
         for form, compute in ENGINE_FORMS.items():
             eng = engine.SttEngine(Settings(device="cpu", compute_type=compute,
                                             **ENGINE_SETTINGS), model_name="test-8h",
-                                   params=from_jax_numpy(jax.tree.map(np.asarray, params), CFG,
-                                                         "cpu"))
+                                   params=carry(params))
             raw: dict = {}
             engine_requests(eng, inputs, form, raw, stream=form == "fp32")
+            eng.shutdown()
+            eng = engine.SttEngine(Settings(device="cpu", compute_type=compute,
+                                            **DRAFT_SETTINGS), model_name="test-8h",
+                                   params=carry(params), draft_params=carry(params))
+            draft_requests(eng, inputs, form, raw, stream=form == "fp32")
             eng.shutdown()
             single[form] = unpack(raw, form)
         theirs = {}
@@ -169,6 +191,18 @@ def results(params, inputs, tmp_path_factory):
             eng.cfg = CFG_R  # the reference engine takes its dtype from its config
             theirs[shape] = jax_requests(eng, speechlike())
             eng.shutdown()
+        # The JAX engine with the draft at "2x2": its own random draft
+        # replaced by the test's, sharded as the engine shards it.
+        from sentiric_stt_whisper_service_tpu.parallel import shard_params as ref_shard
+
+        eng = ref_engine.SttEngine(RefSettings(**DRAFT_SETTINGS, compute_type="float32",
+                                               mesh_shape="2x2"),
+                                   model_name="test-8h", params=params, random_init=True)
+        eng.cfg, eng.draft_cfg, eng.draft_params = CFG_R, CFG_R, ref_shard(eng.mesh, params)
+        theirs["2x2"]["spec_segments"] = segments(eng.transcribe(
+            speechlike(), 16000, ref_engine.RequestOptions(language="en",
+                                                           max_decode_tokens=ENGINE_TOKENS)))
+        eng.shutdown()
     finally:
         outs = {}
         for shape, (procs, tmp) in launched.items():
@@ -385,3 +419,73 @@ def test_engine_over_a_mesh_is_refused_without_its_processes():
     with pytest.raises(ValueError, match="needs 4 devices, have 1"):
         engine.SttEngine(Settings(device="cpu", mesh_shape="2x2", **ENGINE_SETTINGS),
                          model_name="test-8h", random_init=True)
+
+
+@pytest.mark.parametrize("form", list(ENGINE_FORMS))
+@pytest.mark.parametrize("shape", MESHES)
+def test_spec_segments_match(results, shape, form):
+    """A greedy request through the engine with a draft (served after an
+    aborted one) equals the port's single-device engine with the same draft
+    and, at fp32 on "2x2", the JAX engine with it at that mesh."""
+    got = rank0(results, shape, form)
+    wants = [results[0][form]["spec_segments"]]
+    if form == "fp32" and shape == "2x2":
+        wants.append(results[1][shape]["spec_segments"])
+    for want in wants:
+        assert_same_segments(got["spec_segments"], want)
+
+
+@pytest.mark.parametrize("form", list(ENGINE_FORMS))
+@pytest.mark.parametrize("shape", MESHES)
+def test_spec_counts_on_rank_zero_and_rounds_on_every_rank(results, shape, form):
+    """Rank 0's ``PerformanceMetrics.spec`` shows the speculative route
+    (rounds > 0, drafts kept); every rank runs the same rounds in each
+    speculative op, and a follower's ops see no request's counts."""
+    got = rank0(results, shape, form)
+    spec = got["spec_metrics"]
+    assert spec["rounds"] > 0 and spec["emitted"] > spec["rounds"] and spec["accepted"] > 0
+    outcomes = [unpack(o, form)["spec_outcomes"] for o in results[2][shape]]
+    rounds = [[r for r, _ in mine] for mine in outcomes]
+    assert all(r == rounds[0] for r in rounds), rounds
+    assert rounds[0][-1] > 0
+    for follower in outcomes[1:]:
+        assert all(request is None for _, request in follower)
+
+
+@pytest.mark.parametrize("form", list(ENGINE_FORMS))
+@pytest.mark.parametrize("shape", MESHES)
+def test_spec_abort_ends_the_op_on_every_rank(results, shape, form):
+    """Rank 0's abort, first true once the window is encoded, is polled
+    inside the speculative op: the request returns no segment and the op
+    ends with no round on every rank (-1); the next request's window runs
+    its rounds on every rank."""
+    assert int(results[2][shape][0][f"{form}/spec_aborted"]) == 0
+    for o in results[2][shape]:
+        rounds = [r for r, _ in unpack(o, form)["spec_outcomes"]]
+        assert rounds[0] == -1 and all(r > 0 for r in rounds[1:]), rounds
+
+
+@pytest.mark.parametrize("shape", MESHES)
+def test_spec_stream_matches_one_device(results, shape):
+    """A streaming session on the engine with a draft (fp32, 1 s chunks):
+    each tick and the final decode speculatively, one op each on every
+    rank, and the events equal the same stream on the single-device engine
+    with the draft."""
+    got = rank0(results, shape, "fp32")
+    assert any(final for final, *_ in got["spec_stream"])
+    assert got["spec_stream"] == results[0]["fp32"]["spec_stream"]
+    for o in results[2][shape]:
+        assert len(unpack(o, "fp32")["spec_outcomes"]) > 2  # the stream's decodes
+
+
+@pytest.mark.parametrize("shape", MESHES)
+def test_draft_is_sharded_and_followers_keep_nothing(results, shape):
+    """Every rank's draft holds n_text_head / tp heads; a one-head draft is
+    refused on every rank with the target's ``ValueError``; a follower of
+    the engine with a draft keeps no cross K/V after rank 0 closes."""
+    for rank, o in enumerate(results[2][shape]):
+        assert "does not divide the heads" in str(o["draft_refused"]), rank
+        for form in ENGINE_FORMS:
+            assert int(o[f"{form}/draft_heads"]) == CFG.n_text_head // 2
+            if rank:
+                assert int(o[f"{form}/draft_kept_at_stop"]) == 0, (rank, form)

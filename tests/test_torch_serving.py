@@ -463,6 +463,105 @@ def test_serve_cli_and_shutdown(monkeypatch, capsys, wav_bytes):
     assert _non_daemon_threads() <= before
 
 
+def test_profile_on_the_card_takes_no_device_lock(pair, monkeypatch):
+    """``/debug/profile`` on the card records through the port's CUPTI
+    recorder (``serving/device_trace.record``, stubbed here) and holds no
+    lock that device work waits on: while the recorder runs, another thread
+    takes the engine's ``DeviceLock`` exclusively (a graph capture) and
+    shared (device work). The reply's fields are the JAX package's
+    ``/debug/profile`` reply's, as are its seconds."""
+    import json
+    import types
+    from pathlib import Path
+
+    from sentiric_stt_whisper_service_tpu.serving.http_server import HttpServer as RefHttpServer
+    from sentiric_stt_whisper_service_tpu.serving.metrics import AppMetrics as RefAppMetrics
+    from sentiric_stt_whisper_service_tpu_torch.models.graphs import DeviceLock
+    from sentiric_stt_whisper_service_tpu_torch.serving import device_trace
+
+    card = types.SimpleNamespace(device=torch.device("cuda"), _device=DeviceLock(),
+                                 is_ready=lambda: True)
+    taken = []
+
+    def recording(seconds, path):
+        def device_work():
+            with card._device.exclusive():
+                taken.append("exclusive")
+            with card._device.shared():
+                taken.append("shared")
+
+        other = threading.Thread(target=device_work)
+        other.start()
+        other.join(timeout=30)
+        assert not other.is_alive(), "device work waited on the profile"
+        Path(path).write_text(json.dumps({"traceEvents": []}))
+        return device_trace.TraceStats(events=0)
+
+    monkeypatch.setattr(device_trace, "record", recording)
+    status, reply = http_call(HttpServer(card, AppMetrics(), Settings(device="cpu")).app,
+                              "/debug/profile?seconds=0.1")
+    assert status == 200 and taken == ["exclusive", "shared"]
+    with open(f"{reply['trace_dir']}/trace.json") as f:
+        assert json.load(f)["traceEvents"] == []
+    _, theirs = pair
+    ref_status, ref_reply = http_call(RefHttpServer(theirs, RefAppMetrics(), theirs.settings).app,
+                                      "/debug/profile?seconds=0.1")
+    assert ref_status == status and set(ref_reply) == set(reply)
+    assert ref_reply["seconds"] == reply["seconds"] == 0.1
+
+
+def test_device_trace_gates_graph_launches_only_at_start_and_stop(monkeypatch, tmp_path):
+    """``device_trace.record`` (the recorder's C calls stubbed) holds
+    ``models.graphs.GRAPH_LAUNCHES`` exclusively around CUPTI's start and
+    stop, where a graph launch in another thread waits, and nowhere else:
+    a launch goes through while the trace records and while it writes."""
+    from sentiric_stt_whisper_service_tpu_torch.models.graphs import GRAPH_LAUNCHES
+    from sentiric_stt_whisper_service_tpu_torch.serving import device_trace
+
+    def launch_waits() -> bool:
+        """Whether a graph launch in another thread waits on the gate."""
+        entered = threading.Event()
+
+        def launch():
+            with GRAPH_LAUNCHES.shared():
+                entered.set()
+
+        threading.Thread(target=launch, daemon=True).start()
+        return not entered.wait(0.2)
+
+    seen = {}
+
+    class Recorder:
+        def sstw_trace_start(self):
+            seen["start"] = launch_waits()
+            return 0
+
+        def sstw_trace_stop(self):
+            seen["stop"] = launch_waits()
+            return 0
+
+        def sstw_trace_write(self, path):
+            seen["write"] = launch_waits()
+            with open(path, "w") as f:
+                f.write('{"traceEvents": []}')
+            return 0
+
+        def sstw_trace_counts(self, out):
+            for i in range(4):
+                out[i] = 0
+
+    monkeypatch.setattr(device_trace, "lib", Recorder)
+    stats = []
+    tracer = threading.Thread(
+        target=lambda: stats.append(device_trace.record(1.0, str(tmp_path / "trace.json"))))
+    tracer.start()
+    time.sleep(0.5)  # inside the trace's second
+    seen["recording"] = launch_waits()
+    tracer.join(timeout=30)
+    assert not tracer.is_alive() and stats[0].events == 0
+    assert seen == {"start": True, "recording": False, "stop": True, "write": False}
+
+
 @pytest.mark.cuda
 def test_serve_one_grpc_request_on_the_card(monkeypatch):
     """``serve`` on the card (a random ``tiny``: head dim 64, which the
