@@ -1,0 +1,9 @@
+"""Mean ``PerformanceMetrics.stages_ms["encode"]`` of the requests completed in
+the window that ran the stage (the engine's own span, its wait for the
+other requests' eager stages included)."""
+
+
+def read(view):
+    ms = [r.metrics.stages_ms["encode"] for r in view.done
+          if r.metrics is not None and "encode" in r.metrics.stages_ms]
+    return sum(ms) / len(ms) if ms else None
