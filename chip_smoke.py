@@ -2571,8 +2571,11 @@ def serving_phase(torch, np, paths, card, sets) -> None:
 
         # -- 6. /debug/profile while a request runs ------------------------------
         # The profile starts first (it waits for no device work then), and a
-        # request starts inside its second; its stop waits for the request's
-        # decode in flight, so the trace holds that decode.
+        # request starts inside its recorded second, after the tracer's
+        # lead-in; its stop waits for the request's decode in flight, so the
+        # trace holds that decode.
+        from sentiric_stt_whisper_service_tpu_torch.serving.device_trace import LEAD_IN_S
+
         captured = len(engine.graphs.stats())
         profiled, inside = [], []
         profiler = threading.Thread(target=lambda: profiled.append(
@@ -2580,7 +2583,7 @@ def serving_phase(torch, np, paths, card, sets) -> None:
         worker = threading.Thread(target=lambda: inside.append(
             post("/v1/transcribe", [("file", wav12)])))
         profiler.start()
-        time.sleep(0.3)
+        time.sleep(LEAD_IN_S + 0.3)
         worker.start()
         profiler.join(timeout=600)
         worker.join(timeout=600)

@@ -23,6 +23,20 @@
 //     it around each call); only graph launches wait, for the start and
 //     the stop (CUPTI's calls deadlock beside a graph launch in another
 //     thread: the caller holds models.graphs.GRAPH_LAUNCHES around them).
+//   * the records are CUPTI's conversion of the card's timestamps, which in
+//     some processes drifts from the host's clock by hundreds of parts per
+//     million or more; so the recorder puts the records themselves beside
+//     CLOCK_MONOTONIC (time.perf_counter_ns in Python): at its start, at its
+//     stop and at each sstw_trace_mark() it launches marker kernels (an empty
+//     PTX kernel, sstw_trace_marker, on a stream of its own, through the
+//     driver API and outside the interpreter lock), each between a monotonic
+//     read before its launch and one after its stream's synchronise. A
+//     marker's record lies inside that bracket, so each bounds the records'
+//     offset from the host's clock from both sides; the markers' records are
+//     kept apart from the kernels', and their block and grid sizes carry
+//     each marker's number;
+//   * sstw_trace_copy copies the kept records' start and end times out of
+//     the vector, for the join of host spans and kernels after the trace.
 // Bound: host work per record, and CUPTI's own timestamps around each
 // kernel while the kind is enabled (about a microsecond a graph node on
 // the card).
@@ -35,13 +49,26 @@
 //   sstw_trace_write(path)  the Chrome trace of the last start..stop: the
 //                           number of events written, or -1 on an I/O error
 //   sstw_trace_error(code)  CUPTI's text for a result (const char*)
+//   sstw_trace_device(ordinal)  the device the markers run on (before a start)
+//   sstw_trace_mark()       one group of markers (0, or -1 without the driver;
+//                           the caller holds graph captures back meanwhile)
+//   sstw_trace_marks(out, cap)  rows of 5: group, monotonic ns before the
+//                           launch and after the synchronise, the record's
+//                           start and end (CUPTI's clock), for each marker
+//                           of the last start..stop with a record: the rows
+//   sstw_trace_copy(starts, ends, cap)  the kept records' start and end
+//                           (ns, CUPTI's clock), at most cap: the number copied
 
 #include <cupti.h>
 #include <cxxabi.h>
+#include <dlfcn.h>
+
+#include <time.h>
 
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
+#include <cstring>
 #include <mutex>
 #include <string>
 #include <unordered_map>
@@ -66,6 +93,119 @@ std::unordered_map<const char*, int32_t> g_name_index;  // CUPTI's shared name p
 uint64_t g_other = 0, g_dropped = 0, g_buffers = 0;
 bool g_recording = false;  // records that arrive outside a trace are discarded
 
+long long monotonic_ns() {
+  timespec ts;
+  clock_gettime(CLOCK_MONOTONIC, &ts);
+  return static_cast<long long>(ts.tv_sec) * 1000000000LL + ts.tv_nsec;
+}
+
+// The markers: the host's brackets and, once CUPTI delivers it, each one's
+// record. Index = the marker's number in the trace.
+struct Mark {
+  long long group, before, after;  // monotonic ns before the launch, after the synchronise
+  uint64_t start, end;             // the record (0 until it arrives)
+};
+std::vector<Mark> g_marks;
+long long g_group = 0;
+int32_t g_marker_name = -1;  // the marker kernel's index in g_names
+constexpr char kMarkerName[] = "sstw_trace_marker";
+constexpr int kMarkersAtEnds = 8, kMarkersBetween = 3;
+constexpr char kMarkerPtx[] =
+    ".version 7.0\n.target sm_70\n.address_size 64\n"
+    ".visible .entry sstw_trace_marker()\n{\n  ret;\n}\n";
+
+// The driver API, from the libcuda PyTorch loaded (no link-time CUDA).
+struct Driver {
+  CUresult (*device_get)(CUdevice*, int);
+  CUresult (*primary_retain)(CUcontext*, CUdevice);
+  CUresult (*push)(CUcontext);
+  CUresult (*pop)(CUcontext*);
+  CUresult (*module_load)(CUmodule*, const void*);
+  CUresult (*get_function)(CUfunction*, CUmodule, const char*);
+  CUresult (*stream_create)(CUstream*, unsigned int);
+  CUresult (*sync)(CUstream);
+  CUresult (*launch)(CUfunction, unsigned, unsigned, unsigned, unsigned, unsigned, unsigned,
+                     unsigned, CUstream, void**, void**);
+};
+Driver g_cu{};
+int g_device = 0;
+int g_marker_state = 0;  // 0 not tried, 1 ready, -1 failed
+CUcontext g_ctx = nullptr;
+CUfunction g_marker = nullptr;
+CUstream g_marker_stream = nullptr;
+
+template <typename F>
+bool bind(void* lib, const char* name, F* out) {
+  *out = reinterpret_cast<F>(dlsym(lib, name));
+  return *out != nullptr;
+}
+
+// Load the marker kernel on g_device and run it once (before CUPTI records,
+// so its load and first launch fall outside every bracket).
+bool markers_ready() {
+  if (g_marker_state != 0) return g_marker_state > 0;
+  g_marker_state = -1;
+  void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+  if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
+  if (lib == nullptr) return false;
+  Driver d{};
+  if (!(bind(lib, "cuDeviceGet", &d.device_get) &&
+        bind(lib, "cuDevicePrimaryCtxRetain", &d.primary_retain) &&
+        bind(lib, "cuCtxPushCurrent_v2", &d.push) && bind(lib, "cuCtxPopCurrent_v2", &d.pop) &&
+        bind(lib, "cuModuleLoadData", &d.module_load) &&
+        bind(lib, "cuModuleGetFunction", &d.get_function) &&
+        bind(lib, "cuStreamCreate", &d.stream_create) &&
+        bind(lib, "cuStreamSynchronize", &d.sync) && bind(lib, "cuLaunchKernel", &d.launch)))
+    return false;
+  CUdevice dev;
+  CUmodule mod;
+  if (d.device_get(&dev, g_device) != CUDA_SUCCESS ||
+      d.primary_retain(&g_ctx, dev) != CUDA_SUCCESS || d.push(g_ctx) != CUDA_SUCCESS)
+    return false;
+  bool ok = d.module_load(&mod, kMarkerPtx) == CUDA_SUCCESS &&
+            d.get_function(&g_marker, mod, kMarkerName) == CUDA_SUCCESS &&
+            d.stream_create(&g_marker_stream, CU_STREAM_NON_BLOCKING) == CUDA_SUCCESS &&
+            d.launch(g_marker, 1, 1, 1, 1, 1, 1, 0, g_marker_stream, nullptr, nullptr) ==
+                CUDA_SUCCESS &&
+            d.sync(g_marker_stream) == CUDA_SUCCESS;
+  CUcontext popped;
+  d.pop(&popped);
+  if (!ok) return false;
+  g_cu = d;
+  g_marker_state = 1;
+  return true;
+}
+
+// A group of n markers, one after another: each launched between two
+// monotonic reads with its stream synchronised. Its number rides in its
+// block and grid sizes. 0, or -1 without markers.
+int mark_group(int n) {
+  if (!markers_ready()) return -1;
+  if (g_cu.push(g_ctx) != CUDA_SUCCESS) return -1;
+  const long long group = g_group++;
+  for (int i = 0; i < n; ++i) {
+    size_t seq;
+    {
+      std::lock_guard<std::mutex> lock(g_mu);
+      seq = g_marks.size();
+      g_marks.push_back(Mark{group, 0, 0, 0, 0});
+    }
+    const long long before = monotonic_ns();
+    if (g_cu.launch(g_marker, 1 + static_cast<unsigned>(seq / 1024), 1, 1,
+                    1 + static_cast<unsigned>(seq % 1024), 1, 1, 0, g_marker_stream, nullptr,
+                    nullptr) != CUDA_SUCCESS ||
+        g_cu.sync(g_marker_stream) != CUDA_SUCCESS)
+      break;
+    const long long after = monotonic_ns();
+    std::lock_guard<std::mutex> lock(g_mu);
+    g_marks[seq].before = before;
+    g_marks[seq].after = after;
+  }
+  CUcontext popped;
+  g_cu.pop(&popped);
+  return 0;
+}
+
 int32_t intern(const char* name) {
   if (name == nullptr) name = "?";
   auto it = g_name_index.find(name);
@@ -73,6 +213,7 @@ int32_t intern(const char* name) {
   int32_t id = static_cast<int32_t>(g_names.size());
   g_names.emplace_back(name);
   g_name_index.emplace(name, id);
+  if (strcmp(name, kMarkerName) == 0) g_marker_name = id;
   return id;
 }
 
@@ -89,13 +230,22 @@ void CUPTIAPI buffer_completed(CUcontext ctx, uint32_t stream_id, uint8_t* buffe
   while (g_recording && cuptiActivityGetNextRecord(buffer, valid, &rec) == CUPTI_SUCCESS) {
     if (rec->kind != CUPTI_ACTIVITY_KIND_CONCURRENT_KERNEL) {
       ++g_other;
+      continue;
+    }
+    // Fields up to `name` have kept their place since CUpti_ActivityKernel4.
+    const auto* k = reinterpret_cast<const CUpti_ActivityKernel9*>(rec);
+    const int32_t name = intern(k->name);
+    if (name == g_marker_name) {
+      const size_t seq = static_cast<size_t>(k->gridX - 1) * 1024 + (k->blockX - 1);
+      if (seq < g_marks.size()) {
+        g_marks[seq].start = k->start;
+        g_marks[seq].end = k->end;
+      }
     } else if (g_records.size() >= kMaxRecords) {
       ++g_dropped;
     } else {
-      // Fields up to `name` have kept their place since CUpti_ActivityKernel4.
-      const auto* k = reinterpret_cast<const CUpti_ActivityKernel9*>(rec);
       g_records.push_back(Record{k->start, k->end, k->deviceId, k->streamId, k->correlationId,
-                                 intern(k->name), {k->gridX, k->gridY, k->gridZ},
+                                 name, {k->gridX, k->gridY, k->gridZ},
                                  {k->blockX, k->blockY, k->blockZ}});
     }
   }
@@ -133,10 +283,15 @@ std::string json_name(const std::string& mangled) {
 
 extern "C" {
 
+void sstw_trace_device(int ordinal) { g_device = ordinal; }
+
 int sstw_trace_start() {
+  markers_ready();  // loaded and run once before CUPTI records
   {
     std::lock_guard<std::mutex> lock(g_mu);
     g_records.clear();
+    g_marks.clear();
+    g_group = 0;
     g_other = g_dropped = g_buffers = 0;
     g_recording = true;
   }
@@ -144,10 +299,14 @@ int sstw_trace_start() {
   // under torch.profiler) may have registered its own since the last one.
   CUptiResult r = cuptiActivityRegisterCallbacks(buffer_requested, buffer_completed);
   if (r == CUPTI_SUCCESS) r = cuptiActivityEnable(CUPTI_ACTIVITY_KIND_CONCURRENT_KERNEL);
+  if (r == CUPTI_SUCCESS) mark_group(kMarkersAtEnds);
   return static_cast<int>(r);
 }
 
+int sstw_trace_mark() { return mark_group(kMarkersBetween); }
+
 int sstw_trace_stop() {
+  mark_group(kMarkersAtEnds);
   CUptiResult r = cuptiActivityDisable(CUPTI_ACTIVITY_KIND_CONCURRENT_KERNEL);
   CUptiResult f = cuptiActivityFlushAll(CUPTI_ACTIVITY_FLAG_FLUSH_FORCED);
   std::lock_guard<std::mutex> lock(g_mu);
@@ -196,6 +355,34 @@ long long sstw_trace_write(const char* path) {
   out += "\n]}\n";
   ok = ok && fwrite(out.data(), 1, out.size(), f) == out.size();
   return (fclose(f) == 0 && ok) ? n : -1;
+}
+
+long long sstw_trace_marks(long long* out, long long cap) {
+  std::lock_guard<std::mutex> lock(g_mu);
+  long long n = 0;
+  for (const Mark& m : g_marks) {
+    if (n >= cap) break;
+    if (m.after == 0 || m.end == 0) continue;  // not run, or no record
+    long long* row = out + 5 * n++;
+    row[0] = m.group;
+    row[1] = m.before;
+    row[2] = m.after;
+    row[3] = static_cast<long long>(m.start);
+    row[4] = static_cast<long long>(m.end);
+  }
+  return n;
+}
+
+long long sstw_trace_copy(unsigned long long* starts, unsigned long long* ends, long long cap) {
+  std::lock_guard<std::mutex> lock(g_mu);
+  long long n = 0;
+  for (const Record& r : g_records) {
+    if (n >= cap) break;
+    starts[n] = r.start;
+    ends[n] = r.end;
+    ++n;
+  }
+  return n;
 }
 
 const char* sstw_trace_error(int code) {

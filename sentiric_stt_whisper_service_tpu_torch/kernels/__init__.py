@@ -36,7 +36,11 @@ Every exported function launches on the stream it is given and returns the
 ``cudaError_t`` of the launch; :func:`call` raises on anything but 0.
 ``LAUNCHES`` counts launches per kernel: each wrapper in ``ops/`` adds one
 right after its launch and nowhere else, so a run can show that the main
-path went through the kernels.
+path went through the kernels. While the tracer is on (``tracing``, during
+a device trace) :func:`call` also counts each call by (library function,
+size arguments) (:func:`work_key`) into the tracer's session; a CUDA graph's
+capture keeps the keyed calls it made (:func:`collecting`) whether the
+tracer is on or not, and each replay adds them (``models/graphs.py``).
 """
 
 from __future__ import annotations
@@ -49,6 +53,8 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+
+from .. import tracing
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
@@ -83,6 +89,9 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+_sink = threading.local()  # .calls: the keyed calls a capture on this thread collects
+_collecting = 0  # captures collecting keyed calls in the process
+_collecting_lock = threading.Lock()
 
 
 def reset_launch_counts() -> None:
@@ -174,6 +183,43 @@ def call(name: str, *args) -> None:
     if err != 0:
         msg = loaded.sstw_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+    if _collecting or tracing.on:
+        calls = getattr(_sink, "calls", None)
+        if calls is not None:
+            calls.append(work_key(name, args))
+        elif tracing.on:
+            tracing.add_call(work_key(name, args))
+
+
+def work_key(name: str, args: tuple) -> tuple:
+    """(library function, its size arguments): the sizes its wrapper in
+    ``ops/`` read from the shapes of the tensors it was given (the ``c_int``
+    arguments of the C interface), and for K3 whether a causal position
+    vector came with them."""
+    dims = tuple(a for a, t in zip(args, _SIGNATURES.get(name, ())) if t is ctypes.c_int)
+    if name in ("sstw_decode_attention_bf16", "sstw_decode_attention_i8"):
+        dims += (args[3 if name.endswith("bf16") else 5] is not None,)
+    return (name, dims)
+
+
+class collecting:
+    """Inside it, the calling thread's calls are collected into ``calls``
+    (their :func:`work_key`) and counted nowhere else: a graph capture,
+    which launches nothing."""
+
+    def __enter__(self) -> list:
+        global _collecting
+        with _collecting_lock:
+            _collecting += 1
+        _sink.calls = []
+        return _sink.calls
+
+    def __exit__(self, *exc):
+        global _collecting
+        _sink.calls = None
+        with _collecting_lock:
+            _collecting -= 1
+        return False
 
 
 def stream_handle(device) -> int:

@@ -27,6 +27,13 @@ the host replays.
 * **Launch counts.** ``kernels.LAUNCHES`` counts on the host, where a replay
   calls no wrapper: each graph keeps the counts its capture added (taken
   back out, since a capture launches nothing) and adds them at every replay.
+  Beside them each graph keeps the kernel calls its capture made, keyed by
+  (library function, sizes) (``kernels.collecting``), and a replay while
+  the tracer is on (``tracing``) adds them to its session.
+* **Spans.** While the tracer is on, a capture is a ``capture`` span, the
+  wait inside :func:`to_host` a ``to_host`` wait span, and each acquisition
+  of a named :class:`DeviceLock` a wait span (``<name>.shared``,
+  ``<name>.exclusive``).
 * **Random draws.** A sampled step with the caller's generator draws, in
   the graph, from a generator of the class registered with its graphs: the
   caller's state is copied into it before the replays and back after, so
@@ -45,6 +52,7 @@ the host replays.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import threading
 import time
@@ -52,7 +60,7 @@ from typing import Callable, Optional
 
 import torch
 
-from .. import kernels
+from .. import kernels, tracing
 from ..parallel.replay import current as replay_channel
 
 
@@ -62,9 +70,13 @@ class DeviceLock:
     thread that holds it shared may ask for it exclusively (it gives its
     shared hold up while it waits, and takes it back after). A waiting
     capture goes before new shared holders. A thread never waits on another
-    thread while it holds the lock shared."""
+    thread while it holds the lock shared. With a ``name``, each acquisition
+    that is not nested in a hold of the thread is a wait span while the
+    tracer is on."""
 
-    def __init__(self):
+    def __init__(self, name: Optional[str] = None):
+        self._span_shared = f"{name}.shared" if name else None
+        self._span_exclusive = f"{name}.exclusive" if name else None
         self._cond = threading.Condition()
         self._readers = 0
         self._writer: Optional[int] = None
@@ -82,7 +94,8 @@ class DeviceLock:
             finally:
                 self._local.depth -= 1
             return
-        with self._cond:
+        with (tracing.begin(self._span_shared, tracing.WAIT) if tracing.on and self._span_shared
+              else tracing.OFF), self._cond:
             while self._writer is not None or self._writers_waiting:
                 self._cond.wait()
             self._readers += 1
@@ -102,7 +115,8 @@ class DeviceLock:
             yield
             return
         depth = getattr(self._local, "depth", 0)
-        with self._cond:
+        with (tracing.begin(self._span_exclusive, tracing.WAIT)
+              if tracing.on and self._span_exclusive else tracing.OFF), self._cond:
             if depth:  # give this thread's shared hold up while waiting
                 self._readers -= 1
             self._writers_waiting += 1
@@ -135,7 +149,8 @@ def to_host(t: torch.Tensor) -> torch.Tensor:
     host.copy_(t, non_blocking=True)
     done = torch.cuda.Event()
     done.record()
-    done.synchronize()
+    with tracing.begin("to_host", tracing.WAIT) if tracing.on else tracing.OFF:
+        done.synchronize()
     return host
 
 
@@ -196,6 +211,7 @@ class StepLoop:
         self.state, self.inputs, self.step = state, inputs, step
         self.generator = generator  # the class's own, registered with its graphs
         self.graphs: Optional[dict] = None  # bound -> (CUDAGraph, launches a replay)
+        self.calls: dict = {}  # bound -> {kernels.work_key: calls a replay}
         self.capture_s = 0.0
         self.static_bytes = 0
         self.pool_bytes = 0
@@ -218,6 +234,8 @@ class StepLoop:
             graph.replay()
         for name, n in launches.items():
             kernels.LAUNCHES[name] += n
+        if tracing.on:
+            tracing.add_calls(self.calls.get(bound))
 
     @contextlib.contextmanager
     def drawing_from(self, generator: Optional[torch.Generator]):
@@ -236,30 +254,35 @@ class StepLoop:
 def _capture(loop: StepLoop, bounds, pool) -> int:
     """Warm up and capture every bound's step; returns the bytes the
     captures added to the device memory reserved (the pool's growth)."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for bound in bounds:
-            loop.step(loop.state, bound)
-    torch.cuda.current_stream().wait_stream(side)
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()  # as each capture does first: the warm-up's blocks
-    reserved = torch.cuda.memory_reserved()
-    graphs = {}
-    for bound in bounds:
-        graph = torch.cuda.CUDAGraph()
-        if loop.generator is not None:
-            graph.register_generator_state(loop.generator)
-        before = dict(kernels.LAUNCHES)
-        try:
-            with GRAPH_LAUNCHES.shared(), torch.cuda.graph(graph, pool=pool):
+    with (tracing.begin("capture") if tracing.on else tracing.OFF) as sp:
+        if sp is not None:
+            sp.attrs["bounds"] = len(bounds)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for bound in bounds:
                 loop.step(loop.state, bound)
-        finally:
-            added = {k: kernels.LAUNCHES[k] - n for k, n in before.items()}
-            kernels.LAUNCHES.update(before)
-        graphs[bound] = (graph, {k: n for k, n in added.items() if n})
-    loop.graphs = graphs
-    return torch.cuda.memory_reserved() - reserved
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()  # as each capture does first: the warm-up's blocks
+        reserved = torch.cuda.memory_reserved()
+        graphs, calls = {}, {}
+        for bound in bounds:
+            graph = torch.cuda.CUDAGraph()
+            if loop.generator is not None:
+                graph.register_generator_state(loop.generator)
+            before = dict(kernels.LAUNCHES)
+            try:
+                with (GRAPH_LAUNCHES.shared(), kernels.collecting() as keyed,
+                      torch.cuda.graph(graph, pool=pool)):
+                    loop.step(loop.state, bound)
+            finally:
+                added = {k: kernels.LAUNCHES[k] - n for k, n in before.items()}
+                kernels.LAUNCHES.update(before)
+            graphs[bound] = (graph, {k: n for k, n in added.items() if n})
+            calls[bound] = dict(collections.Counter(keyed))
+        loop.graphs, loop.calls = graphs, calls
+        return torch.cuda.memory_reserved() - reserved
 
 
 class DecodeGraphs:

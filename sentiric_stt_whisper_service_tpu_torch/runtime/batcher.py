@@ -60,6 +60,19 @@ or cross-K/V handle, prompt, ``sot_index``, ``max_tokens``), the slots its
 abort polls freed, the live slots and the positions the host read: rank 0
 runs the worker and decides, the other ranks run no thread and replay the
 ticks. Under a tp group the step runs eagerly (``models/graphs.graphable``).
+
+While a device trace records (``tracing``), the worker's spans have the
+role ``worker``: a ``batcher.tick`` holding ``batcher.take`` (the queue and
+the abort polls), ``batcher.admit`` (with the admission encode),
+``batcher.chunk`` (the steps), ``batcher.readback`` (its device wait a
+``to_host`` wait span) and ``batcher.harvest``; the idle wait for work is
+the wait span ``batcher.idle``. Each chunk is a counter ``batcher.chunk``
+(``steps``, ``live`` slots, the ``requests`` it serves) and each tick that
+admits a counter ``batcher.admit`` (``admitted``, ``requests``): the
+request ids are those of the ``request`` spans that submitted them.
+``/debug/profile`` logs the live slots per step and the admissions per
+tick, and its Chrome trace shows each counter, request ids and all, on the
+worker's track.
 """
 
 from __future__ import annotations
@@ -73,6 +86,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import tracing
 from ..models.beam import read_bounds
 from ..models.graphs import (
     DeviceLock,
@@ -130,6 +144,7 @@ class _Request:
     max_tokens: int
     future: Future
     should_abort: Optional[callable] = None  # polled once per step chunk
+    request: int = 0  # the submitting request's id while the tracer is on
 
 
 _XA_NAMES = {4: ("k_q", "v_q", "k_scale", "v_scale"), 8: ("k_q", "v_q", "k_scale", "v_scale"),
@@ -268,6 +283,8 @@ class ContinuousBatcher:
                                   Future(), should_abort))
 
     def _put(self, req: _Request) -> Future:
+        if tracing.on:
+            req.request = tracing.request_id()
         self._queue.put(req)
         self._wake.set()
         return req.future
@@ -346,10 +363,12 @@ class ContinuousBatcher:
         n = self.steps_per_sync
         top = max(self._host_pos[s] for s in live) + n - 1
         bound = read_bound(min(top, self.cache_len - 1), self.bounds)
-        for _ in range(n):
-            self._loop.advance(bound)
-        st = self.state
-        both = to_host(torch.stack([st.done.to(torch.int64), st.pos])).numpy()
+        with tracing.begin("batcher.chunk") if tracing.on else tracing.OFF:
+            for _ in range(n):
+                self._loop.advance(bound)
+        with tracing.begin("batcher.readback") if tracing.on else tracing.OFF:
+            st = self.state
+            both = to_host(torch.stack([st.done.to(torch.int64), st.pos])).numpy()
         return both[0].astype(bool), both[1]
 
     def _admit(self, admits: list) -> None:
@@ -443,36 +462,49 @@ class ContinuousBatcher:
         return [i for i, r in enumerate(self._slot_req) if r is None]
 
     def _worker(self) -> None:
-        while not self._stop.is_set():
-            try:
-                self._worker_tick()
-            except Exception as e:  # noqa: BLE001 — reject, never orphan
-                for i, req in enumerate(self._slot_req):
-                    if req is not None and not req.future.done():
-                        req.future.set_exception(e)
-                    self._slot_req[i] = None
-                self._reset()
+        with tracing.worker_role():
+            while not self._stop.is_set():
+                try:
+                    self._worker_tick()
+                except Exception as e:  # noqa: BLE001 — reject, never orphan
+                    for i, req in enumerate(self._slot_req):
+                        if req is not None and not req.future.done():
+                            req.future.set_exception(e)
+                        self._slot_req[i] = None
+                    self._reset()
 
     @torch.inference_mode()
     def _worker_tick(self) -> None:
-        admits = self._take_queued()
-        aborts = self._poll_aborts()
-        live = [i for i, r in enumerate(self._slot_req) if r is not None]
-        if not (admits or aborts or live):
-            self._wake.wait(timeout=0.05)
-            self._wake.clear()
-            return
-        read = self._tick(admits, aborts, live)
-        if read is None:
-            return
-        done, pos = read
-        with self._lock.shared():
-            for slot in live:
-                if self._slot_req[slot] is None:  # its admission failed
-                    continue
-                self._host_pos[slot] = int(pos[slot])
-                if done[slot]:
-                    self._harvest(slot, int(pos[slot]))
+        with (tracing.begin("batcher.tick") if tracing.on else tracing.OFF) as tick:
+            traced = tick is not None
+            with tracing.begin("batcher.take") if traced else tracing.OFF:
+                admits = self._take_queued()
+                aborts = self._poll_aborts()
+                live = [i for i, r in enumerate(self._slot_req) if r is not None]
+            if not (admits or aborts or live):
+                with tracing.begin("batcher.idle", tracing.WAIT) if traced else tracing.OFF:
+                    self._wake.wait(timeout=0.05)
+                    self._wake.clear()
+                return
+            read = self._tick(admits, aborts, live)
+            if traced and admits:
+                tracing.count("batcher.admit", admitted=len(admits),
+                              requests=tuple(r.request for _, r in admits))
+            if read is None:
+                return
+            done, pos = read
+            if traced:
+                served = [self._slot_req[s] for s in live if self._slot_req[s] is not None]
+                tracing.count("batcher.chunk", steps=self.steps_per_sync, live=len(served),
+                              requests=tuple(r.request for r in served))
+            with (tracing.begin("batcher.harvest") if traced else tracing.OFF,
+                  self._lock.shared()):
+                for slot in live:
+                    if self._slot_req[slot] is None:  # its admission failed
+                        continue
+                    self._host_pos[slot] = int(pos[slot])
+                    if done[slot]:
+                        self._harvest(slot, int(pos[slot]))
 
     @torch.inference_mode()
     def _admit_queued(self) -> None:
@@ -540,7 +572,8 @@ class ContinuousBatcher:
         with self._lock.shared():
             if admits:
                 try:
-                    self._admit(admits)
+                    with tracing.begin("batcher.admit") if tracing.on else tracing.OFF:
+                        self._admit(admits)
                 except Exception as e:  # noqa: BLE001 — rejected by the caller, not orphaned
                     failed = [s for s, _ in admits]
                     self.state.done[to_device(np.array(failed), dev)] = True

@@ -110,6 +110,18 @@ detection, encode, decode, alignment pass and prosody with clustering
 stage's time includes its wait for the other requests' eager stages). On
 the batcher's path a window's encode runs in the batcher's admission tick
 and counts in ``decode``.
+
+While a device trace records (``serving/device_trace``), the engine's
+request threads leave spans (``tracing``): one ``request`` span a
+:meth:`SttEngine.transcribe`, whose id the batcher's and the gang's workers
+carry for the work they do for it; the work spans ``resample``, ``vad``,
+each stage of ``stages_ms`` (the stage's own clock readings: its span lasts
+what it adds) and ``segments``; the wait spans ``queue`` (admission),
+``eager`` (each acquisition of ``_eager``), ``device.shared`` and
+``device.exclusive`` (the engine's ``DeviceLock``), ``batcher`` and
+``gang`` (the wait for their result) and ``to_host``. A ``decode`` span
+carries the window's route, path, prompt length, token budget
+(``max_len``), beam and served tokens.
 """
 
 from __future__ import annotations
@@ -125,6 +137,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from .. import tracing
 from ..audio import resample
 from ..config import Settings, check_beam_size
 from ..diarize import SpeakerClusterer
@@ -282,6 +295,23 @@ def _host(res: DecodeResult) -> DecodeResult:
     return DecodeResult(*(to_host(x).numpy() for x in res))
 
 
+def _waited(fut, name: str, timeout: float):
+    """``fut.result(timeout)``, a wait span ``name`` while the tracer is on."""
+    with tracing.begin(name, tracing.WAIT) if tracing.on else tracing.OFF:
+        return fut.result(timeout=timeout)
+
+
+def _decode_attrs(span, route: str, path: str, prompt: int, max_len: int, beam: int,
+                  res: DecodeResult) -> None:
+    """A decode span's attributes: the window's route and path, its prompt
+    length, token budget and beam, and the tokens served up to each row's
+    end, the last one included (every row's, on the batched path), from the
+    result on the host."""
+    served = int(np.sum(np.asarray(res.lengths) - prompt))
+    span.attrs.update(route=route, path=path, prompt=prompt, max_len=max_len, beam=beam,
+                    windows=len(res.lengths), served=served)
+
+
 def _cut_after_first_poll():
     """An abort callback that lets a decode capture its graphs and prefill,
     then stops it at its first chunk (the first poll is the one before)."""
@@ -375,7 +405,7 @@ class SttEngine:
         ).to(self.device)
         self._slots = threading.Semaphore(max(1, settings.parallel_requests))
         # Shared around device work, exclusive for a graph capture.
-        self._device = DeviceLock()
+        self._device = DeviceLock("device")
         # The engine's own graph classes and generator: one owner at a time.
         self._device_lock = threading.Lock()
         # On the card, request threads dispatch their eager stages (encode,
@@ -383,7 +413,7 @@ class SttEngine:
         # time: from several threads at once they run about 3x slower than
         # one after another (host contention; chip_threads.py). On the
         # CPU they run side by side.
-        self._eager = (threading.Lock() if self.device.type == "cuda"
+        self._eager = (tracing.Gate(threading.Lock(), "eager") if self.device.type == "cuda"
                        else contextlib.nullcontext())
         self._ready = True
         self._generator = torch.Generator(device=self.device)
@@ -473,18 +503,27 @@ class SttEngine:
     @contextlib.contextmanager
     def _stage(self, name: str):
         """Adds the time of the block (the device synchronised at its end)
-        to this thread's request's ``stages_ms[name]``."""
-        t = time.perf_counter()
+        to this thread's request's ``stages_ms[name]``. While the tracer is
+        on the block is also a span ``name`` between the same two clock
+        readings, yielded for its attributes (None when off), and its
+        ``sync`` attribute the instant the synchronise began."""
+        t = time.perf_counter_ns()
+        span = tracing.begin(name, at=t) if tracing.on else None
+        t1 = None
         try:
-            yield
+            yield span
         finally:
             stages = getattr(self._request, "stages", None)
             if stages is not None:
                 if self.device.type == "cuda":
                     with self._device.shared():
+                        if span is not None:  # the join's check of the clock reads it
+                            span.attrs["sync"] = time.perf_counter_ns()
                         torch.cuda.synchronize(self.device)
-                ms = (time.perf_counter() - t) * 1e3
-                stages[name] = stages.get(name, 0.0) + ms
+                t1 = time.perf_counter_ns()
+                stages[name] = stages.get(name, 0.0) + (t1 - t) * 1e-6
+            if span is not None:
+                tracing.end(span, at=t1)
 
     def _get_batcher(self, xa_ctx: Optional[int] = None) -> ContinuousBatcher:
         """The continuous batcher for greedy windows of cross width
@@ -747,6 +786,11 @@ class SttEngine:
         options: RequestOptions,
         metrics: Optional[PerformanceMetrics] = None,
     ) -> list[TranscriptionResult]:
+        with tracing.begin_request() if tracing.on else tracing.OFF:
+            return self._transcribe(pcmf32, input_sample_rate, options, metrics)
+
+    def _transcribe(self, pcmf32: np.ndarray, input_sample_rate: int, options: RequestOptions,
+                    metrics: Optional[PerformanceMetrics]) -> list[TranscriptionResult]:
         t_start = time.perf_counter()
         metrics = metrics if metrics is not None else PerformanceMetrics()
         s = self.settings
@@ -756,7 +800,7 @@ class SttEngine:
 
         audio = np.asarray(pcmf32, np.float32).reshape(-1)
         if input_sample_rate != SAMPLE_RATE:
-            with self._device.shared():
+            with tracing.begin("resample") if tracing.on else tracing.OFF, self._device.shared():
                 audio = to_host(resample(to_device(audio, self.device), input_sample_rate,
                                          SAMPLE_RATE)).numpy()
 
@@ -769,7 +813,7 @@ class SttEngine:
         # affective payload, language "unknown", speaker "unknown", t1 in
         # ms (the reference's quirks; min speech 250 ms inside the VAD).
         # An installed Silero VAD runs on its device: the gate holds the DeviceLock shared.
-        with self._device.shared():
+        with tracing.begin("vad") if tracing.on else tracing.OFF, self._device.shared():
             speech = not s.enable_vad or is_speech_detected(audio, SAMPLE_RATE,
                                                             s.vad_threshold, 250)
         if not speech:
@@ -785,7 +829,9 @@ class SttEngine:
 
         # Admission.
         t_q = time.perf_counter()
-        if not self._slots.acquire(timeout=s.request_queue_timeout_ms / 1000.0):
+        with tracing.begin("queue", tracing.WAIT) if tracing.on else tracing.OFF:
+            admitted = self._slots.acquire(timeout=s.request_queue_timeout_ms / 1000.0)
+        if not admitted:
             raise EngineBusyException("Engine busy: no free decode slot within timeout")
         metrics.queue_time_ms = (time.perf_counter() - t_q) * 1e3
         try:
@@ -919,17 +965,23 @@ class SttEngine:
                     sample_begin=sample_begin, sot_index=sot_index, beam_size=beam_size,
                     max_len=max_len, prefill_len=prefill_len, xa_f=xa_f, use_timestamps=True),
                     should_abort=should_abort)
-                with self._stage("decode"):
-                    res = fut.result(timeout=self._wait_s())
+                with self._stage("decode") as span:
+                    res = _waited(fut, "gang", self._wait_s())
                 if res is None:
                     return None
                 with self._device.shared():
-                    return _host(res)
-        with self._stage("decode"):
-            return self._replay.call(
+                    out = _host(res)
+                if span is not None:
+                    _decode_attrs(span, "gang", "one", sample_begin, max_len, beam_size, out)
+                return out
+        with self._stage("decode") as span:
+            out = self._replay.call(
                 "decode", xa_kv, tinit, sample_begin, sot_index, temperature, beam_size,
                 best_of, max_len, prefill_len, sample_len if greedy else None,
                 should_abort is not None, own=should_abort)
+        if span is not None:
+            _decode_attrs(span, "engine", "one", sample_begin, max_len, beam_size, out)
+        return out
 
     def _decode_window_op(self, xa_kv, tinit, sample_begin, sot_index, temperature,
                           beam_size, best_of, max_len, prefill_len, sample_cap, abortable,
@@ -971,13 +1023,16 @@ class SttEngine:
         tinit = np.full((1, ctx), self.ids.eot, np.int64)
         tinit[0, : len(init_tokens)] = init_tokens
         prefill_len = prompt_bucket(sample_begin)
-        with self._stage("decode"):
+        max_len = min(ctx, prefill_len + sample_len)
+        with self._stage("decode") as span:
             out = self._replay.call(
                 "decode_spec", xa_kv, xa_kv_draft, tinit, sample_begin, sot_index, prefill_len,
-                min(ctx, prefill_len + sample_len), should_abort is not None, own=should_abort)
+                max_len, should_abort is not None, own=should_abort)
         if out is None:
             return None
         res, stats = out
+        if span is not None:
+            _decode_attrs(span, "spec", "one", sample_begin, max_len, 1, res)
         counts = getattr(self._request, "spec", None)
         if counts is not None:
             for name, n in vars(stats).items():
@@ -1020,8 +1075,8 @@ class SttEngine:
         else:
             fut = batcher.submit_encoded(xa_kv, init_tokens, sot_index, max_tokens=sample_len,
                                          should_abort=should_abort)
-        with self._stage("decode"):
-            out = fut.result(timeout=self._wait_s())
+        with self._stage("decode") as span:
+            out = _waited(fut, "batcher", self._wait_s())
         if out is None:  # aborted mid-decode
             return None
         if xa_kv is None and xa_out is not None:
@@ -1033,7 +1088,7 @@ class SttEngine:
         tokens[0, len(init_tokens) : n] = seq
         tok_lps = np.zeros((1, ctx), np.float32)
         tok_lps[0, len(init_tokens) : n] = out["token_logprobs"]
-        return DecodeResult(
+        res = DecodeResult(
             tokens=tokens,
             lengths=np.asarray([min(n + 1, ctx)], np.int64),
             sum_logprobs=np.asarray([out["sum_logprob"]], np.float32),
@@ -1041,6 +1096,10 @@ class SttEngine:
             no_speech_probs=np.asarray([out["no_speech_prob"]], np.float32),
             token_logprobs=tok_lps,
         )
+        if span is not None:
+            _decode_attrs(span, "batcher", "one", len(init_tokens), len(init_tokens) + sample_len,
+                          1, res)
+        return res
 
     def _transcribe_longform(
         self,
@@ -1142,14 +1201,15 @@ class SttEngine:
                     xa_kv = xa_holder[0]  # encoded by _decode_one or the batcher
                 if res is None:  # aborted mid-decode
                     return results
-                seq = np.asarray(res.tokens[0])[sample_begin : int(res.lengths[0])]
-                text_tokens = [int(x) for x in seq if x < ids.eot]
-                text = tok.decode(text_tokens)
-                avg_lp = float(res.avg_logprobs[0])
-                needs_fallback = (
-                    quality_gate_fails(s.quality_gate, text, text_tokens)
-                    or avg_lp < s.logprob_threshold
-                )
+                with tracing.begin("segments") if tracing.on else tracing.OFF:
+                    seq = np.asarray(res.tokens[0])[sample_begin : int(res.lengths[0])]
+                    text_tokens = [int(x) for x in seq if x < ids.eot]
+                    text = tok.decode(text_tokens)
+                    avg_lp = float(res.avg_logprobs[0])
+                    needs_fallback = (
+                        quality_gate_fails(s.quality_gate, text, text_tokens)
+                        or avg_lp < s.logprob_threshold
+                    )
                 no_speech = (
                     float(res.no_speech_probs[0]) > s.no_speech_threshold
                     and avg_lp < s.logprob_threshold
@@ -1169,7 +1229,8 @@ class SttEngine:
             seq = np.asarray(chosen.tokens[0])[sample_begin : int(chosen.lengths[0])]
             tok_lps = np.asarray(chosen.token_logprobs[0])[sample_begin : int(chosen.lengths[0])]
 
-            segments, advance_cs = _parse_segments(seq, tok_lps, ids, window_dur_cs)
+            with tracing.begin("segments") if tracing.on else tracing.OFF:
+                segments, advance_cs = _parse_segments(seq, tok_lps, ids, window_dur_cs)
             base_cs = int(round(seek / SAMPLE_RATE * 100))
 
             # Token-level timestamps: DTW over cross-attention, one extra
@@ -1267,36 +1328,39 @@ class SttEngine:
             for t in temps:
                 if len(accepted) + len(silent) == W:
                     break
-                with self._stage("decode"):
+                with self._stage("decode") as span:
                     res = self._replay.call(
                         "decode", xa_kv, tinit, sample_begin, 0, t, beam_size, 1, max_len,
                         prefill_len, None, options.should_abort is not None,
                         own=options.should_abort)
                 if res is None:  # aborted mid-decode → stop the request
                     return results
-                toks_np, lens_np, lps_np = res.tokens, res.lengths, res.token_logprobs
-                for j in range(W):
-                    if j in accepted or j in silent:
-                        continue
-                    seq = toks_np[j, sample_begin : lens_np[j]]
-                    tok_lps = lps_np[j, sample_begin : lens_np[j]]
-                    text_toks = [int(x) for x in seq if x < ids.eot]
-                    text = tok.decode(text_toks)
-                    avg_lp = float(res.avg_logprobs[j])
-                    no_speech = (
-                        float(res.no_speech_probs[j]) > s.no_speech_threshold
-                        and avg_lp < s.logprob_threshold
-                    )
-                    if no_speech:
-                        silent.add(j)
-                        continue
-                    ok = (
-                        not quality_gate_fails(s.quality_gate, text, text_toks)
-                        and avg_lp >= s.logprob_threshold
-                    )
-                    last[j] = (seq, tok_lps)
-                    if ok:
-                        accepted[j] = (seq, tok_lps)
+                if span is not None:
+                    _decode_attrs(span, "engine", "batched", sample_begin, max_len, beam_size, res)
+                with tracing.begin("segments") if tracing.on else tracing.OFF:
+                    toks_np, lens_np, lps_np = res.tokens, res.lengths, res.token_logprobs
+                    for j in range(W):
+                        if j in accepted or j in silent:
+                            continue
+                        seq = toks_np[j, sample_begin : lens_np[j]]
+                        tok_lps = lps_np[j, sample_begin : lens_np[j]]
+                        text_toks = [int(x) for x in seq if x < ids.eot]
+                        text = tok.decode(text_toks)
+                        avg_lp = float(res.avg_logprobs[j])
+                        no_speech = (
+                            float(res.no_speech_probs[j]) > s.no_speech_threshold
+                            and avg_lp < s.logprob_threshold
+                        )
+                        if no_speech:
+                            silent.add(j)
+                            continue
+                        ok = (
+                            not quality_gate_fails(s.quality_gate, text, text_toks)
+                            and avg_lp >= s.logprob_threshold
+                        )
+                        last[j] = (seq, tok_lps)
+                        if ok:
+                            accepted[j] = (seq, tok_lps)
             for j in range(W):
                 if j not in accepted and j not in silent and j in last:
                     accepted[j] = last[j]  # keep best-effort final attempt
@@ -1315,7 +1379,8 @@ class SttEngine:
             for j in sorted(accepted):
                 seq, tok_lps = accepted[j]
                 base_cs = g_idx[j] * 3000  # 30 s per window in centisec
-                segments, _ = _parse_segments(seq, tok_lps, ids, durs_cs[j])
+                with tracing.begin("segments") if tracing.on else tracing.OFF:
+                    segments, _ = _parse_segments(seq, tok_lps, ids, durs_cs[j])
                 results.extend(
                     self._build_segment_results(
                         segments, base_cs, token_times.get(j), audio, language, lang_prob,

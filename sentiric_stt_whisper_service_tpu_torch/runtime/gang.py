@@ -22,6 +22,15 @@ replay channel (``replay``, ``parallel/replay.py``), carrying the members'
 cross-K/V handles and prompt rows, the bucket and the ``GangKey``; rank 0
 forms the gangs and decides the aborts, the other ranks run no worker and
 replay the decodes. Under a tp group the decode runs eagerly.
+
+While a device trace records (``tracing``), the worker's spans have the
+role ``worker``: ``gang.idle`` (the wait for a first item) and
+``gang.coalesce`` (the wait for its gang) are wait spans, ``gang.decode``
+the decode, with its ``members`` (real windows), ``bucket``, ``max_len``
+(the ``GangKey``'s) and the ``requests`` it serves (the ids of the
+``request`` spans that submitted them). Each decode that ends is also a
+counter ``gang.decode`` (``members``, ``bucket``), also one whose span
+began before the trace.
 """
 
 from __future__ import annotations
@@ -36,6 +45,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import tracing
 from ..models.beam import decode_window_beam
 from ..models.graphs import DecodeGraphs, DeviceLock, to_device
 from ..models.sampling import DecodeResult
@@ -66,6 +76,7 @@ class _Item:
     # Polled between decode chunks: an aborted member resolves None at once,
     # and the batched decode stops once every member has aborted.
     should_abort: Optional[callable] = None
+    request: int = 0  # the submitting request's id while the tracer is on
 
 
 class BeamGang:
@@ -117,6 +128,8 @@ class BeamGang:
                should_abort=None) -> Future:
         item = _Item(key=key, xa_kv=xa_kv, tokens_row=np.asarray(tokens_row),
                      should_abort=should_abort)
+        if tracing.on:
+            item.request = tracing.request_id()
         self._q.put(item)
         return item.future
 
@@ -202,18 +215,33 @@ class BeamGang:
 
     def _run(self) -> None:
         try:
-            while not self._stop.is_set():
-                item = self._next_item()
-                if item is None:
-                    break
-                self._resolve(self._collect_gang(item))
+            with tracing.worker_role():
+                while not self._stop.is_set():
+                    with tracing.begin("gang.idle", tracing.WAIT) if tracing.on else tracing.OFF:
+                        item = self._next_item()
+                    if item is None:
+                        break
+                    with (tracing.begin("gang.coalesce", tracing.WAIT) if tracing.on
+                          else tracing.OFF):
+                        gang = self._collect_gang(item)
+                    self._resolve(gang)
         finally:
             # Worker exit (sentinel, stop or a crash) orphans nothing.
             self._drain_unresolved(RuntimeError("beam gang worker exited"))
 
     def _resolve(self, gang: list[_Item]) -> None:
         try:
-            res = self._decode(gang)
+            try:
+                with (tracing.begin("gang.decode") if tracing.on else tracing.OFF) as sp:
+                    if sp is not None:
+                        sp.attrs.update(members=len(gang), bucket=self.batch_bucket(len(gang)),
+                                        max_len=gang[0].key.max_len,
+                                        requests=tuple(it.request for it in gang))
+                    res = self._decode(gang)
+            finally:
+                if tracing.on:
+                    tracing.count("gang.decode", members=len(gang),
+                                  bucket=self.batch_bucket(len(gang)))
             for i, it in enumerate(gang):
                 if it.future.done():  # aborted mid-decode: already None
                     continue

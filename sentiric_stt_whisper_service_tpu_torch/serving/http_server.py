@@ -142,16 +142,18 @@ class HttpServer:
         lock, held around ``torch.profiler``'s stop, held the card for tens
         of seconds); its start and stop hold back graph launches only
         while they run. On the CPU ``torch.profiler`` takes the CPU
-        activities. The stop's wait and hold and the write's seconds are
-        logged (PROFILE_WRITTEN)."""
+        activities. The stop's wait and hold, the write's seconds and the
+        join of the port's host spans with the kernel records
+        (``device_trace.describe``) are logged (PROFILE_WRITTEN)."""
         if self.engine.device.type == "cuda":
             st = device_trace.record(seconds, path)
             suts_info(
                 "PROFILE_WRITTEN", "", "", "",
-                "Trace of %.1f s written to %s: %d kernel events (%d records dropped); the stop "
-                "waited %.3f s for the graph launches in flight and held the device's graph "
-                "launches %.3f s; written in %.3f s",
-                seconds, path, st.events, st.dropped, st.wait_s, st.stop_s, st.write_s,
+                "Trace of %.1f s written to %s: %d kernel events (%d records dropped), %d host "
+                "spans; the stop waited %.3f s for the graph launches in flight and held the "
+                "device's graph launches %.3f s; written in %.3f s; %s",
+                seconds, path, st.events, st.dropped, st.spans, st.wait_s, st.stop_s,
+                st.write_s, device_trace.describe(st),
             )
             return
         from torch.profiler import ProfilerActivity, profile

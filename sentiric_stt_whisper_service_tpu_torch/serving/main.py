@@ -3,7 +3,8 @@
 
 Startup order: logging → settings → the multi-process leg → model
 provisioning (and the Silero VAD) → metrics registry → engine (on the card
-unless ``Settings.device`` says "cpu") → warm-up → gRPC listener (insecure
+unless ``Settings.device`` says "cpu"; there the ``/debug/profile``
+recorder starts building in a thread of its own) → warm-up → gRPC listener (insecure
 or mTLS) → HTTP and metrics servers on their own threads → park until
 SIGINT/SIGTERM → ordered shutdown.
 
@@ -33,6 +34,7 @@ from aiohttp import web
 from ..config import Settings, load_settings
 from ..parallel import maybe_initialize_distributed
 from ..runtime import SttEngine
+from . import device_trace
 from .grpc_server import build_server
 from .http_server import HttpServer, MetricsServer
 from .metrics import AppMetrics
@@ -164,6 +166,9 @@ def serve(settings: Settings | None = None, random_init: bool = False, block=Tru
         suts_info("REPLAY_RELEASED", "", "", "", "rank 0 shut down; process %d stops",
                   dist.get_rank())
         return None
+    if engine.device.type == "cuda":  # the first /debug/profile then finds it built
+        threading.Thread(target=device_trace.prebuild, daemon=True,
+                         name="device-trace-build").start()
     if os.environ.get("STT_WHISPER_SERVICE_WARMUP", "true").lower() in ("true", "1"):
         suts_info("WARMUP_START", "", "", "", "Capturing the decode graph classes")
         dt = engine.warmup()

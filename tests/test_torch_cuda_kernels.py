@@ -377,8 +377,9 @@ def test_device_trace_records_eager_and_graph_kernels(dev, tmp_path):
     thread while this one launches K1 eagerly and replays a CUDA graph of
     16 small kernels captured before the trace holds K1 by name and every
     node of each replay, as Chrome trace events, and drops nothing. The
-    launches start half a second into the trace (its start, CUPTI's set-up
-    included, takes tens of milliseconds)."""
+    launches start half a second into the recording, after the tracer's
+    lead-in (its start, CUPTI's set-up included, takes tens of
+    milliseconds)."""
     import collections
     import json
     import threading
@@ -405,7 +406,7 @@ def test_device_trace_records_eager_and_graph_kernels(dev, tmp_path):
     tracer = threading.Thread(
         target=lambda: stats.append(device_trace.record(2.0, str(tmp_path / "trace.json"))))
     tracer.start()
-    time.sleep(0.5)
+    time.sleep(device_trace.LEAD_IN_S + 0.5)
     fused_mel.log_mel_power_fused(audio, 80)
     for _ in range(5):
         graph.replay()

@@ -64,6 +64,7 @@ MODULES = [
     "sentiric_stt_whisper_service_tpu_torch.parallel.distributed",
     "sentiric_stt_whisper_service_tpu_torch.parallel.replay",
     "sentiric_stt_whisper_service_tpu_torch.runtime.training",
+    "sentiric_stt_whisper_service_tpu_torch.tracing",
 ]
 
 

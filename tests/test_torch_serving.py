@@ -513,8 +513,14 @@ def test_profile_on_the_card_takes_no_device_lock(pair, monkeypatch):
 def test_device_trace_gates_graph_launches_only_at_start_and_stop(monkeypatch, tmp_path):
     """``device_trace.record`` (the recorder's C calls stubbed) holds
     ``models.graphs.GRAPH_LAUNCHES`` exclusively around CUPTI's start and
-    stop, where a graph launch in another thread waits, and nowhere else:
-    a launch goes through while the trace records and while it writes."""
+    stop and around each group of markers between them (the gate held
+    by the recording thread), where a graph launch in another thread
+    waits, and nowhere else:
+    a launch goes through while the trace records and while it writes. It
+    calls the start and the stop through the loaded library's attributes
+    (where the benchmark wraps them), with the port's tracer on at both and
+    off once it returns."""
+    from sentiric_stt_whisper_service_tpu_torch import tracing
     from sentiric_stt_whisper_service_tpu_torch.models.graphs import GRAPH_LAUNCHES
     from sentiric_stt_whisper_service_tpu_torch.serving import device_trace
 
@@ -530,14 +536,17 @@ def test_device_trace_gates_graph_launches_only_at_start_and_stop(monkeypatch, t
         return not entered.wait(0.2)
 
     seen = {}
+    marks = []  # whether each group of markers held graph launches back
 
     class Recorder:
         def sstw_trace_start(self):
             seen["start"] = launch_waits()
+            seen["on at start"] = tracing.on
             return 0
 
         def sstw_trace_stop(self):
             seen["stop"] = launch_waits()
+            seen["on at stop"] = tracing.on
             return 0
 
         def sstw_trace_write(self, path):
@@ -550,7 +559,26 @@ def test_device_trace_gates_graph_launches_only_at_start_and_stop(monkeypatch, t
             for i in range(4):
                 out[i] = 0
 
-    monkeypatch.setattr(device_trace, "lib", Recorder)
+        def sstw_trace_device(self, ordinal):
+            pass
+
+        def sstw_trace_mark(self):
+            marks.append(GRAPH_LAUNCHES._writer == threading.get_ident())
+            return 0
+
+        def sstw_trace_marks(self, out, cap):
+            return 0
+
+        def sstw_trace_copy(self, starts, ends, cap):
+            return 0
+
+    loaded = Recorder()
+    start, stop = loaded.sstw_trace_start, loaded.sstw_trace_stop
+    called = []
+    loaded.sstw_trace_start = lambda: called.append("start") or start()
+    loaded.sstw_trace_stop = lambda: called.append("stop") or stop()
+    monkeypatch.setattr(device_trace, "lib", lambda: loaded)
+    monkeypatch.setattr(device_trace, "LEAD_IN_S", 0.0)  # the recorder starts at once
     stats = []
     tracer = threading.Thread(
         target=lambda: stats.append(device_trace.record(1.0, str(tmp_path / "trace.json"))))
@@ -559,7 +587,10 @@ def test_device_trace_gates_graph_launches_only_at_start_and_stop(monkeypatch, t
     seen["recording"] = launch_waits()
     tracer.join(timeout=30)
     assert not tracer.is_alive() and stats[0].events == 0
-    assert seen == {"start": True, "recording": False, "stop": True, "write": False}
+    assert seen == {"start": True, "recording": False, "stop": True, "write": False,
+                    "on at start": True, "on at stop": True}
+    assert called == ["start", "stop"] and not tracing.on
+    assert marks and all(marks)
 
 
 @pytest.mark.cuda
