@@ -388,13 +388,20 @@ SOURCES = {
                              "sentiric_stt_whisper_service_tpu/ops/beam_attention.py:333",
                              "beam5"),
     "flash_q8": ("csrc/flash_q8.cu", "tools/bench_flash_int8.py:105", "probe_flash_int8"),
+    # W8 replaces no Pallas kernel: the JAX package's int8 product, whose
+    # weight conversion XLA fuses into the matmul's operand.
+    "dense_w8": ("csrc/dense_w8.cu", "sentiric_stt_whisper_service_tpu/models/whisper.py:268",
+                 "greedy_int4"),
 }
+# The kernels of SOURCES that replace XLA's fusion rather than a Pallas kernel.
+XLA_FUSED = ("dense_w8",)
 
 # The port's kernel functions (every __global__ of csrc/), matched by name in
 # the --profile breakdown.
 PROFILE_KERNELS = ("log_mel_kernel", "flash_attention_kernel", "decode_attention_kernel",
                    "decode_attention_i4_kernel", "beam_attention_kernel",
-                   "beam_cross_attention_kernel", "flash_q8_quant_kernel", "flash_q8_kernel")
+                   "beam_cross_attention_kernel", "flash_q8_quant_kernel", "flash_q8_kernel",
+                   "dense_w8_kernel")
 
 
 # The packages the servers import (serving/): phase 9 runs only where they load.
@@ -953,6 +960,8 @@ def check_kernels(torch, np) -> list[dict]:
            tol6, why6, (nbytes(q6_8, k4_8, v4_8, k4s_8, v4s_8, q6_8), {"int8": cross_ops * B8 // S}),
            cold=(k6_i4, (q6_8, k4_8, v4_8, k4s_8, v4s_8)), kernel="beam_cross_attention")
 
+    check_w8(torch, g, record)
+
     # K5 and K6 at beam 9: two groups of query beams per (item, head), each
     # over all 9 slots (K5) or the whole slab (K6). A package that refuses
     # 9 beams (a parent under --compare) leaves these rows out.
@@ -980,6 +989,83 @@ def check_kernels(torch, np) -> list[dict]:
            tol6, why6, (nbytes(q6_9, k4, v4, k4s, v4s, q6_9), {"int8": 4 * S * H * K9 * HD * F}),
            cold=(k6_i4, (q6_9, k4, v4, k4s, v4s)), kernel="beam_cross_attention")
     return rows
+
+
+# W8 at large-v3's decode widths: the fused qkv, o / cross q / cross o, fc1,
+# fc2 (K, N) and the tied logits, at a greedy step's 1 row, the pool's 8, the
+# gang's 40 and an align pass's 128; the M_MAX sweep at 64 to 512 rows.
+W8_SHAPES = ((1280, 3840), (1280, 1280), (1280, 5120), (5120, 1280))
+W8_VOCAB = 51866
+W8_ROWS = (1, 8, 40, 128)
+W8_SWEEP_ROWS = (64, 128, 256, 512)
+
+
+def check_w8(torch, g, record) -> None:
+    """Phase 3's W8 rows: the kernel against its plain version, with today's
+    cast + ``torch.matmul`` + scale (+ bias) as the library yardstick, then
+    the device time of both at the ``M_MAX`` sweep's rows. A package without
+    ``ops/dense_w8`` (a parent under --compare) leaves them out."""
+    try:
+        from sentiric_stt_whisper_service_tpu_torch.ops import dense_w8 as w8
+    except ImportError:
+        return
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+
+    def operands(M, K, N, logits):
+        x = (torch.randn(M, K, generator=g, device=dev) * 0.5).to(bf)
+        shape = (N, K) if logits else (K, N)
+        w_q = torch.randint(-127, 128, shape, generator=g, device=dev, dtype=torch.int8)
+        scale = torch.rand(N, generator=g, device=dev) * 0.01 + 1e-4
+        b = torch.randn(N, generator=g, device=dev).to(bf)
+        return x, w_q, scale, b
+
+    def cast_dense(x, w_q, scale, b):  # the port's int8 dense before W8
+        return (torch.matmul(x, w_q.to(x.dtype)).float() * scale).to(x.dtype) + b
+
+    def cast_logits(x, emb_q, scale):  # the port's tied logits before W8
+        return torch.matmul(x.float(), emb_q.float().T) * scale
+
+    def logits_tol(x, emb_q, scale):  # two fp32 sums of K terms in any order
+        mag = torch.matmul(x.float().abs(), emb_q.float().abs().T) * scale
+        return 2 * x.shape[-1] * 2**-24 * mag + 1e-30
+
+    cases = [(K, N, False) for K, N in W8_SHAPES] + [(1280, W8_VOCAB, True)]
+    for M in W8_ROWS:
+        for K, N, logits in cases:
+            x, w_q, scale, b = operands(M, K, N, logits)
+            work = (nbytes(x, w_q, scale) + M * N * (4 if logits else 2) + (0 if logits else 2 * N),
+                    {"bf16": 2 * M * K * N})
+            main = M == 8 and (K, N) == (1280, 3840)
+            if logits:
+                record(f"W8 logits_w8 M={M} [{W8_VOCAB},{K}]",
+                       lambda: w8.logits_w8(x, w_q, scale),
+                       lambda: w8.logits_w8_plain(x, w_q, scale),
+                       logits_tol(x, w_q, scale), "two fp32 sums of K terms in any order", work,
+                       library_fn=lambda: cast_logits(x, w_q, scale),
+                       cold=(w8.logits_w8, (x, w_q, scale)), kernel="dense_w8", rows=M,
+                       shape=[K, N])
+            else:
+                record(f"W8 dense_w8 M={M} [{K},{N}]", lambda: w8.dense_w8(x, w_q, scale, b),
+                       lambda: w8.dense_w8_plain(x, w_q, scale, b), lambda peak: 2**-6 * peak,
+                       "2 bf16 steps at max |plain|: fp32 sums in another order, then rounded",
+                       work, library_fn=lambda: cast_dense(x, w_q, scale, b),
+                       cold=(w8.dense_w8, (x, w_q, scale, b)), kernel="dense_w8", main=main,
+                       rows=M, shape=[K, N])
+    print(f"  W8 M_MAX sweep (device ms, kernel / cast + torch.matmul; M_MAX = {w8.M_MAX}):")
+    for M in W8_SWEEP_ROWS:
+        parts = []
+        for K, N, logits in cases:
+            x, w_q, scale, b = operands(M, K, N, logits)
+            if logits:
+                mine = graph_ms(lambda: w8.logits_w8(x, w_q, scale))
+                lib = graph_ms(lambda: cast_logits(x, w_q, scale))
+            else:
+                mine = graph_ms(lambda: w8.dense_w8(x, w_q, scale, b))
+                lib = graph_ms(lambda: cast_dense(x, w_q, scale, b))
+            parts.append(f"[{K},{N}] {mine:.4f} / {lib:.4f}")
+            del x, w_q, scale, b
+        print(f"    M={M}: " + "; ".join(parts))
 
 
 def main() -> int:
@@ -1252,8 +1338,11 @@ def run(torch, np, profile: bool = False, kernels_only: bool = False) -> int:
         capture(path, bits, self_dtype, budget)
         xa, res, walls, paths[path] = measured(runs, bits, self_dtype, budget)
         report(f"{path}: {label}", res, walls, budget, paths[path], show_text=bits == 4)
-        for name in ("log_mel", "flash_attention", cross_read):
+        for name in ("log_mel", "flash_attention", cross_read, "dense_w8"):
             require(paths[path][name] > 0, f"{path}: kernel {name} was not launched")
+        require(paths[path]["dense_w8"] % (6 * cfg.n_text_layer + 1) == 0,
+                f"{path}: W8 launched {paths[path]['dense_w8']} times, not 6 x layers + 1 "
+                f"per decoder pass")
         require(paths[path][cross_read] % cfg.n_text_layer == 0,
                 f"{path}: {cross_read} launched {paths[path][cross_read]} times, not once per "
                 f"layer per step")

@@ -18,7 +18,11 @@ The kernels, each with the TPU kernel of the JAX package it replaces:
   * P1 ``flash_q8`` (``csrc/flash_q8.cu``, a quantizing pre-pass, a cluster
     of eight blocks per (batch, head), then two passes of int8 ``wgmma``
     QKᵀ per 128-row query tile fed by a ``cp.async`` ring): the JAX
-    package's probe ``tools/bench_flash_int8.py:105``.
+    package's probe ``tools/bench_flash_int8.py:105``;
+  * W8 ``dense_w8`` (``csrc/dense_w8.cu``, the weight-only int8 product at
+    small M, split K over a cluster of up to eight blocks): no TPU kernel,
+    the JAX package leaves it to XLA's operand fusion
+    (``models/whisper.py:260``, ``:287``).
 
 K3, K5 and K6 share the constants and slab forms of
 ``csrc/slab_attention.cuh``; K3, K4 and K5 the split-softmax pieces of
@@ -70,6 +74,7 @@ LAUNCHES = {
     "beam_attention": 0,  # K5, ops/beam_attention.py (bf16 and int8 forms)
     "beam_cross_attention": 0,  # K6, ops/beam_attention.py (bf16, int8 and int4 forms)
     "flash_q8": 0,  # P1, ops/flash_q8.py (qk8 and full8 modes)
+    "dense_w8": 0,  # W8, ops/dense_w8.py (dense and logits forms)
 }
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -85,6 +90,8 @@ _SIGNATURES = {
     "sstw_beam_cross_attention_i8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "sstw_beam_cross_attention_i4": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "sstw_flash_q8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "sstw_dense_w8": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "sstw_logits_w8": [_P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

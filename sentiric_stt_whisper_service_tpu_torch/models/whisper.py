@@ -30,16 +30,19 @@ Kernels on this path, on CUDA tensors: the encoder's unmasked attention
 (``ops/decode_attention``: K4 on the int4 carrier, K3 on int8 or bf16
 slabs) and the beam decode step's self and cross reads
 (``ops/beam_attention``: K5 over the ancestry-masked slot caches, K6 over
-the shared cross slab in its three forms). The convolutions and dense products are plain ``conv1d`` and
+the shared cross slab in its three forms), and the int8 dense products and
+tied logits of at most ``dense_w8.M_MAX`` rows (``ops/dense_w8``, W8). The
+convolutions and the other dense products are plain ``conv1d`` and
 ``matmul``, as the JAX package leaves them to XLA. With an fp32 model on
 CUDA set ``torch.backends.cudnn.allow_tf32 = False`` (cuDNN's default is
 True) and keep ``torch.backends.cuda.matmul.allow_tf32`` False (the
 default), or the products round to TF32.
 
-Numerics: fp32 layer-norm statistics and softmax. In bf16 the int8 dense
-product is rounded to bf16 before its per-channel scale (the JAX package
-keeps that product in fp32); the tied logits are computed in fp32 as in
-the JAX package.
+Numerics: fp32 layer-norm statistics and softmax. An int8 product of at
+most ``dense_w8.M_MAX`` rows keeps its sum in fp32 through the per-channel
+scale and rounds once, as the JAX package does; a larger one (the encoder,
+the cross K/V) is rounded to bf16 before its scale. The tied logits are
+computed in fp32 as in the JAX package.
 """
 
 from __future__ import annotations
@@ -54,6 +57,8 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from .. import tracing
+from ..ops import dense_w8
 from ..ops.beam_attention import (
     beam_attention,
     beam_cross_attention,
@@ -372,15 +377,27 @@ class _ReduceFromTP(torch.autograd.Function):
 def dense(x, p: Dense):
     """Dense layer; dispatches on weight-only int8 (``w_q``). On a
     tensor-parallel shard a column-parallel layer's input passes f, a
-    row-parallel layer's product g, and its bias is added once, after."""
+    row-parallel layer's product g, and its bias is added once, after.
+
+    An int8 product of at most ``dense_w8.M_MAX`` rows goes to
+    ``ops/dense_w8`` (W8 on a CUDA tensor, with the bias in its epilogue
+    unless the layer is row-parallel); a larger one (the encoder, the cross
+    K/V) casts the weight and runs ``torch.matmul``, counted as
+    ``dense.cast``."""
     if p.tp_group is not None and p.tp_role == "column":
         x = _CopyToTP.apply(x, p.tp_group)
-    if p.w_q is not None:
+    row = p.tp_group is not None and p.tp_role == "row"
+    if p.w_q is not None and dense_w8.serves(x) and not row:
+        return dense_w8.dense_w8(x, p.w_q, p.scale, p.b)
+    if p.w_q is None:
+        y = torch.matmul(x, p.w)
+    elif dense_w8.serves(x):
+        y = dense_w8.dense_w8(x, p.w_q, p.scale)
+    else:
+        tracing.count("dense.cast", rows=dense_w8.rows(x))
         y = torch.matmul(x, p.w_q.to(x.dtype))
         y = (y.float() * p.scale).to(x.dtype)
-    else:
-        y = torch.matmul(x, p.w)
-    if p.tp_group is not None and p.tp_role == "row":
+    if row:
         y = _ReduceFromTP.apply(y, p.tp_group)
     if p.b is not None:
         y = y + p.b
@@ -396,8 +413,13 @@ def embed_tokens(dec: WhisperDecoder, tokens: torch.Tensor) -> torch.Tensor:
 
 def tied_logits(x: torch.Tensor, dec: WhisperDecoder) -> torch.Tensor:
     """Logits against the (possibly int8) tied token embedding, fp32:
-    x [..., T, d] → [..., T, V]."""
+    x [..., T, d] → [..., T, V]. The int8 embedding goes to
+    ``ops/dense_w8.logits_w8`` at most ``dense_w8.M_MAX`` rows (W8 on a CUDA
+    tensor), else is cast to fp32 (counted as ``dense.cast``)."""
     if dec.tok_emb_q is not None:
+        if dense_w8.serves(x):
+            return dense_w8.logits_w8(x, dec.tok_emb_q, dec.tok_emb_scale)
+        tracing.count("dense.cast", rows=dense_w8.rows(x))
         return torch.matmul(x.float(), dec.tok_emb_q.float().T) * dec.tok_emb_scale
     return torch.matmul(x.float(), dec.tok_emb.float().T)
 

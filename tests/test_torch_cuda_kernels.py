@@ -13,7 +13,8 @@ Small shapes with the slices' widths (hd = 64, 20 heads, 5 beams, and 9 and
 Tolerances: the JAX package's 3e-4 for the fp32 log-mel; for bf16 outputs,
 two bf16 steps at the largest plain output (fp32 sums in another order, then
 bf16 rounding), four for K6, whose plain version also rounds its softmax
-weights to bf16.
+weights to bf16. W8's fp32 logits: the worst-case error of two fp32 sums of
+K terms in any order, 2 K 2^-24 times the sum of the terms' magnitudes.
 """
 
 import pytest
@@ -21,6 +22,7 @@ import torch
 
 from sentiric_stt_whisper_service_tpu_torch import kernels
 from sentiric_stt_whisper_service_tpu_torch.ops import beam_attention as ba
+from sentiric_stt_whisper_service_tpu_torch.ops import dense_w8 as w8
 from sentiric_stt_whisper_service_tpu_torch.ops import decode_attention as da
 from sentiric_stt_whisper_service_tpu_torch.ops import fused_mel, mel, quant
 from sentiric_stt_whisper_service_tpu_torch.ops.flash_attention import (
@@ -419,3 +421,125 @@ def test_device_trace_records_eager_and_graph_kernels(dev, tmp_path):
     assert any("log_mel_kernel" in n for n in names), names
     assert sum(c for n, c in names.items() if "mul" in n.lower()) >= 5 * 16, names
     assert all(e["ph"] == "X" and e["dur"] >= 0 for e in events)
+
+
+# W8 at the rows and (K, N) of the main paths: decode steps of 1-8 rows, the
+# pool (8), the gang (40), speculative verify (5, 10), prefill and the align
+# passes (up to M_MAX); large-v3's fused qkv, o / cross q / cross o, fc1,
+# fc2, and the tied logits.
+W8_ROWS = sorted({1, 2, 5, 8, 10, 16, 40, 64, 128, w8.M_MAX})
+W8_SHAPES = [(1280, 3840), (1280, 1280), (1280, 5120), (5120, 1280)]
+W8_VOCAB = 51866
+
+
+def _w8_operands(dev, M, K, N, g):
+    x = (torch.randn(M, K, device=dev, generator=g) * 0.5).bfloat16()
+    w_q = torch.randint(-127, 128, (K, N), device=dev, dtype=torch.int8, generator=g)
+    scale = torch.rand(N, device=dev, generator=g) * 0.01 + 1e-4
+    b = torch.randn(N, device=dev, generator=g).bfloat16()
+    return x, w_q, scale, b
+
+
+def _logits_close(got, x, emb_q, scale):
+    want = w8.logits_w8_plain(x, emb_q, scale)
+    assert got.dtype == want.dtype == torch.float32 and got.shape == want.shape
+    magnitude = torch.matmul(x.float().abs(), emb_q.float().abs().T) * scale
+    err = (got - want).abs()
+    assert bool((err <= 2 * x.shape[-1] * 2**-24 * magnitude + 1e-30).all()), err.max().item()
+
+
+@pytest.mark.parametrize("M", W8_ROWS)
+@pytest.mark.parametrize("K,N", W8_SHAPES)
+def test_dense_w8(dev, M, K, N):
+    g = torch.Generator(device=dev).manual_seed(M * 7 + K + N)
+    x, w_q, scale, b = _w8_operands(dev, M, K, N, g)
+    before = kernels.LAUNCHES["dense_w8"]
+    got = w8.dense_w8(x, w_q, scale, b)
+    bare = w8.dense_w8(x, w_q, scale)
+    assert kernels.LAUNCHES["dense_w8"] == before + 2
+    torch.cuda.synchronize()
+    _close_bf16(got, w8.dense_w8_plain(x, w_q, scale, b))
+    _close_bf16(bare, w8.dense_w8_plain(x, w_q, scale))
+
+
+@pytest.mark.parametrize("M", W8_ROWS)
+def test_logits_w8(dev, M):
+    K = 1280
+    g = torch.Generator(device=dev).manual_seed(M)
+    x = (torch.randn(M, K, device=dev, generator=g) * 0.5).bfloat16()
+    emb_q = torch.randint(-127, 128, (W8_VOCAB, K), device=dev, dtype=torch.int8, generator=g)
+    scale = torch.rand(W8_VOCAB, device=dev, generator=g) * 0.01 + 1e-4
+    before = kernels.LAUNCHES["dense_w8"]
+    got = w8.logits_w8(x, emb_q, scale)
+    assert kernels.LAUNCHES["dense_w8"] == before + 1
+    torch.cuda.synchronize()
+    _logits_close(got, x, emb_q, scale)
+
+
+@pytest.mark.parametrize("M", [1, 8, 40, 130])
+def test_w8_in_a_cuda_graph(dev, M):
+    """Both forms captured in one graph and replayed on new inputs copied
+    into the captured ones; the keyed calls the capture collects are its
+    ``LAUNCHES`` delta, one a call, at (M, K, N)."""
+    K, N = 1280, 3840
+    g = torch.Generator(device=dev).manual_seed(M)
+    x, w_q, scale, b = _w8_operands(dev, M, K, N, g)
+    emb_q = torch.randint(-127, 128, (W8_VOCAB, K), device=dev, dtype=torch.int8, generator=g)
+    emb_scale = torch.rand(W8_VOCAB, device=dev, generator=g) * 0.01 + 1e-4
+    x_in = x.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up: the library built and loaded
+        w8.dense_w8(x_in, w_q, scale, b)
+        w8.logits_w8(x_in, emb_q, emb_scale)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = dict(kernels.LAUNCHES)
+    with kernels.collecting() as keyed, torch.cuda.graph(graph):
+        y = w8.dense_w8(x_in, w_q, scale, b)
+        logits = w8.logits_w8(x_in, emb_q, emb_scale)
+    added = {k: kernels.LAUNCHES[k] - n for k, n in before.items() if kernels.LAUNCHES[k] != n}
+    assert added == {"dense_w8": 2}
+    assert keyed == [("sstw_dense_w8", (M, K, N)), ("sstw_logits_w8", (M, K, W8_VOCAB))]
+    for _ in range(3):
+        x_new = (torch.randn(M, K, device=dev, generator=g) * 0.5).bfloat16()
+        x_in.copy_(x_new)
+        graph.replay()
+        torch.cuda.synchronize()
+        _close_bf16(y, w8.dense_w8_plain(x_new, w_q, scale, b))
+        _logits_close(logits, x_new, emb_q, emb_scale)
+
+
+def test_whisper_routes_int8_products_to_w8(dev):
+    """``models/whisper.dense`` and ``tied_logits`` launch W8 at most
+    ``M_MAX`` rows and cast above; the 3-d input keeps its leading axes."""
+    from sentiric_stt_whisper_service_tpu_torch.models import whisper
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    K, N = 1280, 1280
+    _, w_q, scale, b = _w8_operands(dev, 1, K, N, g)
+    p = whisper.Dense(w_q=w_q, scale=scale, b=b)
+    for rows, launched in ((w8.M_MAX, 1), (w8.M_MAX + 1, 0)):
+        x = torch.randn(rows, 1, K, device=dev, generator=g).bfloat16()
+        before = kernels.LAUNCHES["dense_w8"]
+        y = whisper.dense(x, p)
+        assert kernels.LAUNCHES["dense_w8"] == before + launched
+        assert y.shape == (rows, 1, N)
+        _close_bf16(y.reshape(rows, N), w8.dense_w8_plain(x.reshape(rows, K), w_q, scale, b))
+
+
+def test_w8_refuses_what_the_kernel_does_not_take(dev):
+    g = torch.Generator(device=dev).manual_seed(0)
+    x, w_q, scale, b = _w8_operands(dev, 4, 1280, 1280, g)
+    with pytest.raises(ValueError, match="dtype"):
+        w8.dense_w8(x.float(), w_q, scale, b)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        w8.dense_w8(x[:, :1272].contiguous(), w_q[:1272].contiguous(), scale, b)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        w8.dense_w8(x, w_q[:, :1272].contiguous(), scale[:1272].contiguous(), b[:1272].contiguous())
+    buf = torch.empty(4 * 1280 + 1, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        w8.dense_w8(buf[1:].view(4, 1280), w_q, scale, b)
+    with pytest.raises(ValueError, match="shapes"):
+        w8.logits_w8(x, w_q, scale[:7].contiguous())

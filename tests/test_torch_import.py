@@ -170,4 +170,4 @@ def test_library_name_follows_the_sources():
     assert path == kernels.library_path()  # deterministic
     assert {p.name for p in kernels.CSRC.glob("*.cu")} == {
         "mel.cu", "flash_attention.cu", "decode_attention.cu", "decode_attention_i4.cu",
-        "beam_attention.cu", "beam_cross_attention.cu", "flash_q8.cu"}
+        "beam_attention.cu", "beam_cross_attention.cu", "flash_q8.cu", "dense_w8.cu"}

@@ -1,7 +1,8 @@
 """chip_smoke.py names every kernel of the port: its ``SOURCES`` table (one
 row of the ``kernels`` JSON line each) has every launch counter of
 ``kernels.LAUNCHES``, each with a source in ``csrc/`` and the line of the
-``pl.pallas_call`` it replaces, and its ``--profile`` name list covers every
+``pl.pallas_call`` it replaces (or, for a kernel of ``XLA_FUSED``, the JAX
+package's ``jnp.dot`` whose operand fusion it takes over), and its ``--profile`` name list covers every
 ``__global__`` function of ``csrc/``, so the breakdown drops none. Its
 docstring numbers phases 1 to 13, phase 8's wire chunks carry the WAV header
 and odd byte counts, the probe's and the serving phase's constants hold
@@ -32,7 +33,9 @@ def test_sources_name_every_launch_counter():
     for name, (src, replaces, _path) in smoke.SOURCES.items():
         assert (ROOT / smoke.PKG / src).is_file(), (name, src)
         file, line = replaces.rsplit(":", 1)
-        assert "pl.pallas_call(" in (ROOT / file).read_text().splitlines()[int(line) - 1], replaces
+        text = (ROOT / file).read_text().splitlines()[int(line) - 1]
+        replaced = "jnp.dot(" if name in smoke.XLA_FUSED else "pl.pallas_call("
+        assert replaced in text, replaces
 
 
 def test_profile_names_cover_every_kernel_function():
