@@ -1,6 +1,6 @@
 """The yardstick of the kernels and of the whole step: the card's peaks, the
-least time a call could take, the work of each kernel from the shapes its
-wrapper is given, and a model's FLOPs from its configuration.
+least time a call could take, and the work of each kernel from the shapes
+its wrapper is given. A model's FLOPs are its family's (``families/``).
 
 The peaks and ``bound`` are a frozen copy of phase 3 of ``chip_smoke.py``
 (``HBM_BYTES_PER_S``, ``PEAK_OPS_PER_S``, ``EXP_PER_S`` and ``bound`` at the
@@ -97,41 +97,6 @@ def least_seconds(calls: dict, kernel: str) -> float:
             continue
         total += n * bound(*entry[1](*ints))[0]
     return total
-
-
-# --- the whole model ------------------------------------------------------
-
-
-def encode_flops(cfg: dict) -> float:
-    """One 30 s window through the encoder at its full positions: the two
-    convolutions, and per layer q, k, v, o, the MLP and attention."""
-    d, t, m = cfg["d_model"], cfg["max_source_positions"], cfg["num_mel_bins"]
-    ff = cfg["encoder_ffn_dim"]
-    convs = 2 * (2 * t) * 3 * m * d + 2 * t * 3 * d * d
-    layer = 2 * t * 4 * d * d + 2 * t * 2 * d * ff + 4 * t * t * d
-    return convs + cfg["encoder_layers"] * layer
-
-
-def cross_kv_flops(cfg: dict) -> float:
-    """The cross-attention K and V of every decoder layer for one window."""
-    d, t = cfg["d_model"], cfg["max_source_positions"]
-    return cfg["decoder_layers"] * 2 * (2 * t * d * d)
-
-
-def token_flops(cfg: dict, position: int) -> float:
-    """One token at ``position`` through every decoder layer (self q, k, v,
-    o over the positions before it, cross q and o over the audio, the MLP)
-    and the tied logits."""
-    d, t, ff = cfg["d_model"], cfg["max_source_positions"], cfg["decoder_ffn_dim"]
-    layer = 2 * 6 * d * d + 2 * 2 * d * ff + 4 * (position + 1) * d + 4 * t * d
-    return cfg["decoder_layers"] * layer + 2 * d * cfg["vocab_size"]
-
-
-def window_flops(cfg: dict, n_tokens: int, beams: int = 1) -> float:
-    """A decoded window: its encode, its cross K/V, and ``n_tokens``
-    positions (prompt and served tokens) for each of ``beams`` beams."""
-    return (encode_flops(cfg) + cross_kv_flops(cfg)
-            + beams * sum(token_flops(cfg, p) for p in range(n_tokens)))
 
 
 BF16_PEAK = PEAK_OPS_PER_S["bf16"]

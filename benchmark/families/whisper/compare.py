@@ -74,6 +74,19 @@ def cross_bits(config: dict, route: str) -> int:
     return 4 if ct.startswith("int4") and route != "batcher" else 8
 
 
+def assign_starts(record) -> None:
+    """Each window's start in the request's 16 kHz audio: the batched
+    long-form path decodes 30 s windows in order; a single-window request
+    starts at 0. Windows of a sequential multi-window request are left
+    unplaced (not judged)."""
+    batched = [w for w in record.windows if w["path"] == "batched"]
+    for i, w in enumerate(batched):
+        w["start"] = i * 480000
+    ones = [w for w in record.windows if w["path"] == "one"]
+    if len(ones) == 1 and record.clip.pcm.size <= 30 * record.clip.rate:
+        ones[0]["start"] = 0
+
+
 def sample_windows(records: list, n: int, seed: int) -> list:
     """(record, window) pairs: the window with the most served tokens, then
     ``n - 1`` more drawn from the seed among the judged records' windows."""

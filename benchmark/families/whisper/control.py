@@ -8,8 +8,9 @@ first, and its log-probability of the served one; in a beam cell also the
 reference's with each fault of ``reference.BEAM_FAULTS`` planted). One
 process for all seeds, on the card:
 
-    python3 benchmark/control.py --workload <cell> --seconds <s> --seeds a,b,c [--control-seeds a,b]
+    python3 benchmark/families/whisper/control.py --workload <cell> --seconds <s> --seeds a,b,c
 
+(``--control-seeds a,b``: the seeds on which the control is read too).
 Prints one JSON line per seed and a last line with the largest program
 reading and the smallest control and fault reading of each number.
 """
@@ -20,7 +21,7 @@ import sys
 import time
 from pathlib import Path
 
-ROOT = Path(__file__).resolve().parents[1]
+ROOT = Path(__file__).resolve().parents[3]
 sys.path.insert(0, str(ROOT))
 
 

@@ -14,6 +14,9 @@ import time
 
 import torch
 
+from .. import Built
+
+
 def hf_shapes(dims: dict) -> dict:
     """name → (shape, init) of every tensor of a Whisper checkpoint in the
     Hugging Face layout (``WhisperForConditionalGeneration``, weights
@@ -141,15 +144,20 @@ def host_arrays(flat: torch.Tensor, dims: dict) -> dict:
     return out
 
 
-@dataclasses.dataclass
-class Built:
-    engine: object
-    steps: dict  # seconds of each set-up step
+def weights_seed(workload: dict, seed: int) -> int:
+    """The seed the checkpoint is drawn from: the cell's ``weights_seed``
+    where its workload file fixes one, else the run's seed. Random weights
+    decide how many timestamped segments each window yields, and so the
+    host's work a request; a fixed checkpoint leaves the run's seed the
+    clips, their order and the windows judged, so that every seed serves
+    the same work in another order."""
+    return int(workload.get("weights_seed", seed))
 
 
 def build(config: dict, workload: dict, seed: int, device: str) -> Built:
-    """Weights from ``seed`` on ``device``, through the port's public HF
-    loader (``checkpoint/safetensors_io.params_from_hf_state``), into an
+    """Weights from ``weights_seed(workload, seed)`` on ``device``, through
+    the port's public HF loader
+    (``checkpoint/safetensors_io.params_from_hf_state``), into an
     ``SttEngine`` with the cell's settings, warmed up."""
     from sentiric_stt_whisper_service_tpu_torch.checkpoint.safetensors_io import (
         params_from_hf_state,
@@ -158,7 +166,7 @@ def build(config: dict, workload: dict, seed: int, device: str) -> Built:
 
     dev = torch.device(device)
     t0 = time.perf_counter()
-    flat = make_flat(config, seed, dev)
+    flat = make_flat(config, weights_seed(workload, seed), dev)
     t1 = time.perf_counter()
     host = host_arrays(flat, config)
     del flat

@@ -1,12 +1,14 @@
 """One run of one cell: set-up, the measured window, the readers, the
 comparison with the reference, and the result line.
 
-Everything that belongs to one configuration, traffic mix or metric is a
-file found by name: ``configs/<config>.json`` (named in BENCHMARK.json),
-``workloads/<cell>.json`` (the mix, the driver it names under
-``traffic/``, the cell's settings and the limits of its comparison) and
+Everything that belongs to one configuration, traffic mix, metric or kind
+of model is a file found by name: ``configs/<config>.json`` (named in
+BENCHMARK.json), ``workloads/<cell>.json`` (the mix, the driver it names
+under ``traffic/``, the cell's settings and the limits of its comparison),
 ``metrics/<metric>.py`` (a ``read(view)`` returning the number, or None
-where there is nothing to read).
+where there is nothing to read) and ``families/<family>/`` (the model
+family the configuration names: its weights, engine, tap, judge and FLOPs;
+``families/__init__.py``).
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ class Record:
     error: str = None
     results: list = None
     metrics: object = None
-    windows: list = dataclasses.field(default_factory=list)
+    windows: list = dataclasses.field(default_factory=list)  # what the family's tap put here
 
 
 @dataclasses.dataclass
@@ -102,31 +104,18 @@ def cell_metrics(spec: dict, cell: str, traced: bool) -> list:
     return out
 
 
-def assign_starts(record: Record) -> None:
-    """Each window's start in the request's 16 kHz audio: the batched
-    long-form path decodes 30 s windows in order; a single-window request
-    starts at 0. Windows of a sequential multi-window request are left
-    unplaced (not judged)."""
-    batched = [w for w in record.windows if w["path"] == "batched"]
-    for i, w in enumerate(batched):
-        w["start"] = i * 480000
-    ones = [w for w in record.windows if w["path"] == "one"]
-    if len(ones) == 1 and record.clip.pcm.size <= 30 * record.clip.rate:
-        ones[0]["start"] = 0
-
-
 def run_cell(config: dict, workload: dict, metrics: list, seed: int, seconds: float,
              traced: bool, device: str, t_proc: float, log=print, control: bool = False) -> dict:
     """One run; returns the result object (the keys of the result line).
     ``control`` also reads the control (the reference one precision below
-    the configuration's, in the program's place) over the same windows:
-    the calibration of ``control.py``, never a benchmark run."""
+    the configuration's, in the program's place) over the same work: the
+    calibration of a family's limits, never a benchmark run."""
     import torch
 
-    from . import devtrace, probe, system
-    from .judge import Judge, sample_windows
+    from . import devtrace, families, probe
     from .traffic import clips
 
+    family = families.load(config)
     driver = importlib.import_module(f"{__package__}.traffic.{workload['driver']}")
     mix = workload["mix"]
     pool = clips.make_pool(mix, seed)
@@ -137,11 +126,11 @@ def run_cell(config: dict, workload: dict, metrics: list, seed: int, seconds: fl
 
         ktap = probe.KernelTap()
         device_trace.lib()
-    built = system.build(config, workload, seed, device)
+    built = family.build(config, workload, seed, device)
     engine = built.engine
-    tap = probe.DecodeTap(engine)
+    tap = family.tap(engine)
     run = Run(engine, tap, mix, pool, seed)
-    classes = graph_classes(engine)
+    classes = family.describe(engine)
     t_warm = time.perf_counter()
     if workload.get("warm_requests"):
         driver.drive(run, time.perf_counter() + 600.0, max_requests=workload["warm_requests"])
@@ -153,8 +142,8 @@ def run_cell(config: dict, workload: dict, metrics: list, seed: int, seconds: fl
     steps = {"imports and pool": t_in - t_proc, **built.steps,
              "warm requests": time.perf_counter() - t_warm}
     log(f"set-up {setup_s:.3f} s: " + ", ".join(f"{k} {v:.3f}" for k, v in steps.items())
-        + f"; graph classes after warmup() {classes}, after the warm requests "
-        f"{graph_classes(engine)}")
+        + f"; the engine after warmup() {classes}, after the warm requests "
+        f"{family.describe(engine)}")
 
     t0 = time.perf_counter()
     until = t0 + seconds
@@ -189,18 +178,12 @@ def run_cell(config: dict, workload: dict, metrics: list, seed: int, seconds: fl
         torch.cuda.empty_cache()
 
     judged = [r for r in records if r.done is not None and r.error is None]
-    for r in judged:
-        assign_starts(r)
-    state = system.make_state(config, seed, torch.device(device))
-    judge = Judge(state, config, mix["language"])
-    pairs = sample_windows(judged, workload["check"]["windows"], seed)
-    ctl = Judge(state, config, mix["language"], weight_bits=4) if control else None
     t_judge = time.perf_counter()
-    readings = judge.readings(pairs, control=ctl)
-    log(f"comparison: {readings['windows']} windows, {readings['tokens']} tokens in "
-        f"{time.perf_counter() - t_judge:.3f} s; requests (sent after the window's start s, "
-        f"wall ms): " + " ".join(f"{r.sent - t0:.2f}:{(r.done - r.sent) * 1e3:.0f}"
-                                 for r in judged))
+    readings = family.judge(judged, config, workload, seed, device, control=control)
+    log(f"comparison in {time.perf_counter() - t_judge:.3f} s: "
+        + ", ".join(f"{k} {v!r}" for k, v in readings.items())
+        + "; requests (sent after the window's start s, wall ms): "
+        + " ".join(f"{r.sent - t0:.2f}:{(r.done - r.sent) * 1e3:.0f}" for r in judged))
     limits = workload["check"]["limits"]
     compared = {name: {"value": _finite(readings[name]), "limit": limits[name]}
                 for name in limits}
@@ -209,7 +192,6 @@ def run_cell(config: dict, workload: dict, metrics: list, seed: int, seconds: fl
     compared["failed_in_error"] = {"value": len(broken), "limit": 0}
     correct = (readings["windows"] >= 1 and not never and not broken
                and all(readings[n] <= lim for n, lim in limits.items()))
-    del judge, ctl, state
     if cuda:
         torch.cuda.empty_cache()
     result = {"correct": bool(correct), "attempted": len(records), "failed": len(failed),
@@ -229,15 +211,6 @@ def run_cell(config: dict, workload: dict, metrics: list, seed: int, seconds: fl
     result["compared"] = compared
     result["readings"] = readings
     return result
-
-
-def graph_classes(engine) -> dict:
-    """Decode graph classes captured so far: the engine's own and the beam
-    gang's (the batcher's pools capture theirs when they are built)."""
-    gang = engine._beam_gang
-    return {"engine": len(engine.graphs.stats()),
-            "gang": len(gang.graphs.stats()) if gang is not None else 0,
-            "pools": len(engine._batchers)}
 
 
 def _finite(x: float) -> float:

@@ -1,13 +1,12 @@
 """The whole step's share of the card's bf16 peak: the model FLOPs of the
-work completed in the window (each decoded window encoded at its full
-positions, its cross K/V, and its prompt and served tokens through every
-decoder layer and the tied logits, once a beam), over the window's
+work completed in the window, as the configuration's model family counts
+them (``served_flops`` of each request back inside it), over the window's
 seconds at 989 TFLOP/s."""
 
-from benchmark import bounds
+from benchmark import bounds, families
 
 
 def read(view):
-    flops = sum(bounds.window_flops(view.config, len(w["prompt"]) + len(w["tokens"]), w["beam"])
-                for r in view.done for w in r.windows)
+    family = families.load(view.config)
+    flops = sum(family.served_flops(view.config, r) for r in view.done)
     return 100.0 * flops / (view.seconds * bounds.BF16_PEAK) if flops else None

@@ -1,4 +1,4 @@
-"""The kernels' work and the model's FLOPs against hand-worked values at
+"""The kernels' work and the Whisper family's FLOPs against hand-worked values at
 phase 3's shapes (``chip_smoke.py``: K2 [4, 20, 1500, 64] bf16; K3 int8 and
 K4 at S = 4 and S = 8 over F = 1500; K6 int4 at B = 4 and B = 8, K = 5)."""
 
@@ -7,6 +7,7 @@ from __future__ import annotations
 import pytest
 
 from benchmark import bounds
+from benchmark.families.whisper import flops
 
 
 def ms(work):
@@ -69,16 +70,16 @@ def test_model_flops_large_v3():
     d, t = 1280, 1500
     layer = 2 * t * 4 * d * d + 2 * t * 2 * d * 4 * d + 4 * t * t * d  # 70.5e9
     convs = 2 * 3000 * 3 * 128 * d + 2 * t * 3 * d * d
-    assert bounds.encode_flops(LARGE_V3) == 32 * layer + convs
-    assert bounds.encode_flops(LARGE_V3) == pytest.approx(2.2735e12, rel=1e-3)
-    assert bounds.cross_kv_flops(LARGE_V3) == 32 * 4 * t * d * d  # 314.6e9
+    assert flops.encode_flops(LARGE_V3) == 32 * layer + convs
+    assert flops.encode_flops(LARGE_V3) == pytest.approx(2.2735e12, rel=1e-3)
+    assert flops.cross_kv_flops(LARGE_V3) == 32 * 4 * t * d * d  # 314.6e9
     # a token at position 0: 6 d^2 products (self q, k, v, o; cross q, o),
     # the MLP, attention over one self position and 1500 audio ones; logits
     tok = 32 * (12 * d * d + 16 * d * d + 4 * d + 4 * t * d) + 2 * d * 51866
-    assert bounds.token_flops(LARGE_V3, 0) == tok
+    assert flops.token_flops(LARGE_V3, 0) == tok
     # about 2.4 TFLOP a 128-token request (the issue's sizing)
-    assert bounds.window_flops(LARGE_V3, 131) == pytest.approx(2.82e12, rel=0.02)
+    assert flops.window_flops(LARGE_V3, 131) == pytest.approx(2.82e12, rel=0.02)
     turbo = dict(LARGE_V3, decoder_layers=4)
-    assert bounds.window_flops(turbo, 131, beams=1) < bounds.window_flops(LARGE_V3, 131)
-    assert bounds.window_flops(LARGE_V3, 10, beams=5) - bounds.window_flops(LARGE_V3, 10) == \
-        pytest.approx(4 * sum(bounds.token_flops(LARGE_V3, p) for p in range(10)))
+    assert flops.window_flops(turbo, 131, beams=1) < flops.window_flops(LARGE_V3, 131)
+    assert flops.window_flops(LARGE_V3, 10, beams=5) - flops.window_flops(LARGE_V3, 10) == \
+        pytest.approx(4 * sum(flops.token_flops(LARGE_V3, p) for p in range(10)))

@@ -4,9 +4,9 @@ and a short window of the cell's own traffic. The control (the reference
 computed with int4 weights in the program's place) has to read above the
 cell's limit on one of its numbers, and the program below every limit; in
 the beam cell the reference's beam search with the best candidate of every
-beam dropped (``reference.BEAM_FAULTS``) has to read above the limit of
-``beam_not_first``. ``benchmark/control.py`` takes the same readings over
-many seeds."""
+beam dropped (``families/whisper/reference.BEAM_FAULTS``) has to read
+above the limit of ``beam_not_first``. ``benchmark/families/whisper/control.py``
+takes the same readings over many seeds."""
 
 from __future__ import annotations
 

@@ -106,7 +106,8 @@ def _imports(path) -> set:
 
 
 def test_the_reference_imports_nothing_of_the_program():
-    for name in ("reference.py", "judge.py", "bounds.py", "voiced.py"):
+    for name in ("families/whisper/reference.py", "families/whisper/compare.py",
+                 "families/whisper/flops.py", "bounds.py", "voiced.py"):
         assert _imports(ROOT / "benchmark" / name) <= {"__future__", "contextlib", "math",
                                                        "numpy", "torch", "scipy"}, name
 
@@ -132,3 +133,39 @@ def test_the_result_line():
     assert {"platform", "kind", "count", "memory_peak_bytes"} <= set(back["device"])
     for c in back["compared"].values():
         assert set(c) == {"value", "limit"}
+
+
+@pytest.mark.parametrize("entry", SPEC["configs"], ids=lambda c: c["name"])
+def test_every_config_names_a_family_with_the_five_functions(entry):
+    from benchmark import families
+
+    cfg = harness.load_json(ROOT / entry["file"])
+    assert (ROOT / "benchmark" / "families" / cfg["family"] / "__init__.py").is_file()
+    family = families.load(cfg)
+    assert all(callable(getattr(family, f)) for f in families.FUNCTIONS)
+
+
+def _generic_files() -> list:
+    bench = ROOT / "benchmark"
+    return [bench / "harness.py", bench / "run.py", *sorted((bench / "metrics").glob("*.py"))]
+
+
+@pytest.mark.parametrize("path", _generic_files(), ids=lambda p: p.name)
+def test_the_generic_harness_knows_no_family(path):
+    """The harness, the entry and the readers reach a family only through
+    ``families.load``: they import nothing under ``families/`` and name
+    none of the Whisper family's pieces."""
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            base = "." * node.level + (node.module or "")
+            names = [base] + [f"{base}.{a.name}" for a in node.names]
+        else:
+            continue
+        assert not any(re.search(r"(^|\.)families\.", n) for n in names), (path.name, names)
+    text = path.read_text()
+    for word in ("hf_shapes", "DecodeTap", "Judge", "window_flops", "_beam_gang",
+                 "params_from_hf_state", "make_state", "assign_starts"):
+        assert word not in text, (path.name, word)

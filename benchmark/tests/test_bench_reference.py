@@ -9,8 +9,8 @@ import numpy as np
 import pytest
 import torch
 
-from benchmark import reference as R
-from benchmark import system
+from benchmark.families.whisper import reference as R
+from benchmark.families.whisper import system
 from benchmark.voiced import pcm16, voiced_like
 
 from .conftest import cpu_run, small_config
